@@ -23,3 +23,11 @@ def powerlaw_graph(n, avg_deg, seed=0):
     from repro.graphs.datasets import powerlaw_graph as plg
 
     return plg(n, avg_deg, seed=seed)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the hand-written kernels of repro_torch); "
+        "decided inside the test, which skips when there is none",
+    )
