@@ -5,32 +5,55 @@
 
 Needs one CUDA device, ``nvcc`` and nothing else; it imports ``torch`` and
 ``numpy`` and the port, never ``jax`` and never the reference package. It
-builds every hand-written kernel from the sources in this checkout, holds
-each against its plain torch version on the card (integers: bit for bit,
-tolerance 0), drives the port's main path — the paper's LCC pipeline —
-through its public entry points, and fails (non-zero exit) if any phase
-fails. Each phase prints one JSON object on a line of its own:
+builds every hand-written kernel from the sources in this checkout (one
+``nvcc`` per source, started together), holds each against its plain torch
+version on the card (integers: bit for bit, tolerance 0), drives the port's
+two paths — the paper's LCC pipeline and the streaming path with the device
+tier — through their public entry points, and fails (non-zero exit) if any
+phase fails. Each phase prints one JSON object on a line of its own:
 
   env      versions, device name, ``nvidia-smi`` name and power limit
   build    seconds to build each library, ``-Xptxas -v`` registers / smem
-  checks   kernel vs plain version at the listed shapes
+  checks   kernel vs plain version at the listed shapes: B1
+           (``intersect_count``); B3 (``resident_intersect``, both variants,
+           E in {0,1,7,64,130,1000}, WB in {0,4,32,200}, evicted slots,
+           S = 1 and 4,096, an out-of-range slot raises); B2
+           (``bitmap_intersect_count``, E x W in {1,3,256,1000} x
+           {1,3,128,2048}) and B2 against B1 on 512 heavy edges of the S16
+           graph packed over [0, n)
   entry    ``repro_torch.launch.lcc_run.main`` at R-MAT scale 12, --verify
   full     the epoch engine at R-MAT scale 16 / edge factor 16, p = 8:
            kernel route (``pairwise``) vs plain route (``bsearch``), and
            the host oracle at scale 14
   pairs    100,000 sampled edges through ``batched_pair_counts``
-  timing   the kernel at the full-size engine's per-round shapes (CUDA
-           events), beside its plain version and ``count_bsearch_torch``
+  stream   ``repro_torch.launch.stream_run.main`` at R-MAT scale 14 / edge
+           factor 16, 16 batches, p = 8, device tier of 1,024 x 512 slots,
+           every 4th batch verified bit-exact against a recount; the largest
+           B3 call of each variant is held against the plain version again;
+           then the same run once more under ``torch.profiler`` for the
+           device rows and idle share (updates/s is the unprofiled run's)
+  stream_routes  scale 12, 8 adversarial batches, per-rank tier, hub
+           partition + rebalance, maintained schedule, two engines wired by
+           ``stream_run.build_engine`` from the launcher's flags, with and
+           without ``--no-kernel``: bit-equal after every batch, both
+           verified
+  timing   each kernel at full-size shapes (CUDA events) beside its plain
+           version and its bound: B1 at the engine's per-round slab, B3 on
+           the 4,096 top-degree rows of the S16 graph, B2 on 65,536 edges
+           packed over [0, 65,536)
 
 then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``. The launch counts in the summary are read
-from the wrappers' counters, set to 0 just before ``entry`` and read just
-after ``pairs``; launches made by ``checks`` and ``timing`` are not in them.
+from the wrappers' counters, set to 0 just before each path (``entry``
+through ``pairs``; ``stream``; ``stream_routes``) and read just after it;
+launches made by ``checks`` and ``timing`` are not in them, except for B2,
+whose only path is its cross-check against B1 (the reference has no other
+caller of it).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-import math
 import os
 import re
 import statistics
@@ -45,6 +68,21 @@ RANKS = 8
 CACHE_ROWS = 256
 FULL_ROUNDS = 32
 N_PAIRS = 100_000
+LIBRARIES = ("intersect_count", "resident_intersect", "bitmap_popcount")
+STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
+               "--p", "8", "--cache-rows", "256", "--device-tier",
+               "--device-slots", "1024", "--device-width", "512",
+               "--checkpoint-every", "4"]
+ROUTES_ARGV = ["--scale", "12", "--edge-factor", "16", "--batches", "8",
+               "--p", "4", "--cache-rows", "256", "--adversarial",
+               "--device-tier", "--device-scope", "per_rank",
+               "--device-slots", "256", "--device-width", "256",
+               "--partition", "hub", "--rebalance", "--maintain-schedule"]
+TIER_ROWS = 4096  # resident rows of the B3 timing: the top-degree rows
+VS_SLOTS_PAIRS = 262_144
+VS_ROWS_PAIRS = 65_536
+VS_SLOTS_PLAIN_PAIRS = 2048  # the all-pairs plain version costs ~W^2/pair
+BITMAP_PAIRS = 65_536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # fp32 CUDA-core peak of the data sheet; taken as the rate of the int32
 # compares too (an upper bound of it, so the bound stays a lower bound)
@@ -105,6 +143,231 @@ def global_rows(prob, ids, np):
     return own, loc
 
 
+def bound_ms(nbytes: float, ops: float):
+    """(bound ms, what bounds it): the larger of the bytes over the card's
+    memory rate and the operations over its peak rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / OPS_PER_S * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def pair_ops(na, nb, torch) -> float:
+    """Compares that intersecting sorted rows of valid lengths ``na``,
+    ``nb`` needs, pair by pair the cheaper of a merge (na + nb) and a
+    search of the shorter in the longer (ns * ceil(log2(nl + 1))): a
+    count of the work, not of one algorithm's steps."""
+    na, nb = na.to(torch.float64), nb.to(torch.float64)
+    ns, nl = torch.minimum(na, nb), torch.maximum(na, nb)
+    return float(torch.minimum(ns * torch.ceil(torch.log2(nl + 1)),
+                               na + nb).sum())
+
+
+def min_ms(fn, reps=20, warmup=3):
+    """The lower of two CUDA-event timings of ``fn`` (``reps`` calls each)."""
+    return min(cuda_ms(fn, reps=reps, warmup=warmup),
+               cuda_ms(fn, reps=reps, warmup=warmup))
+
+
+def padded(csr, vertices, width, sentinel, np):
+    out = np.full((len(vertices), width), sentinel, np.int32)
+    for i, v in enumerate(vertices):
+        r = csr.row(int(v))
+        out[i, : r.size] = r
+    return out
+
+
+def check_resident_intersect(dev, rng, np, torch):
+    """B3 vs its plain version, tolerance 0: both variants, ragged E, query
+    widths 0-200, evicted (all-sentinel) slots, S = 1 and S = 4096; an
+    out-of-range slot raises. Returns (cases, max_abs_err)."""
+    from repro_torch.kernels import resident_intersect as ri
+
+    sent = 4096
+    cases, worst = [], 0
+    for s, w in ((1, 16), (4096, 64)):
+        res = pad_sorted(rng, s, w, sent, np)
+        evicted = rng.choice(s, size=max(1, s // 16), replace=False)
+        res[evicted] = sent
+        res_t = torch.from_numpy(res).to(dev)
+        for e in (0, 1, 7, 64, 130, 1000):
+            sa = rng.integers(0, s, e)
+            sb = rng.integers(0, s, e)
+            if e:
+                sa[0] = evicted[0]
+                sb[-1] = evicted[0]
+            sa_t = torch.from_numpy(sa.astype(np.int32)).to(dev)
+            sb_t = torch.from_numpy(sb.astype(np.int32)).to(dev)
+            runs = [("vs_slots", None, sb)]
+            runs += [("vs_rows", pad_sorted(rng, e, wb, sent, np), None)
+                     for wb in (0, 4, 32, 200)]
+            for variant, rows, slots_b in runs:
+                got = ri.resident_intersect_counts(
+                    res_t, sa, rows, slots_b=slots_b, sentinel=sent,
+                    device=dev)
+                torch.cuda.synchronize()
+                want = ri.resident_intersect_ref(
+                    res_t, sa_t,
+                    None if rows is None else torch.from_numpy(rows).to(dev),
+                    slots_b=None if slots_b is None else sb_t,
+                    sentinel=sent).cpu().numpy()
+                if got.dtype != np.int64 or got.shape != (e,):
+                    raise RuntimeError(f"B3 output {got.dtype} {got.shape}")
+                err = int(np.abs(got - want).max()) if e else 0
+                worst = max(worst, err)
+                cases.append({"variant": variant, "S": s, "W": w, "E": e,
+                              "WB": w if rows is None else rows.shape[1],
+                              "err": err})
+                if err:
+                    raise RuntimeError(f"B3 {cases[-1]}: kernel != plain")
+    before = ri.launches()
+    try:
+        ri.resident_intersect_counts(res_t, np.array([0, 4096]),
+                                     slots_b=np.array([0, 0]), sentinel=sent,
+                                     device=dev)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("B3: an out-of-range slot did not raise")
+    if ri.launches() != before:
+        raise RuntimeError("B3: a refused call launched the kernel")
+    return cases, worst
+
+
+def check_bitmap(dev, rng, heavy_a, heavy_b, n, sent, np, torch):
+    """B2 vs its plain version at E x W in {1,3,256,1000} x {1,3,128,2048},
+    then B2 against B1 on the 512 heavy edges of the full-size graph packed
+    over [0, n). Returns (cases, max_abs_err, cross-check launches)."""
+    from repro_torch.core.csr import rows_to_bitmap_words
+    from repro_torch.kernels import bitmap_popcount as bm
+    from repro_torch.kernels import ops
+
+    cases, worst = [], 0
+    for e in (1, 3, 256, 1000):
+        for w in (1, 3, 128, 2048):
+            a = rng.integers(0, 2**32, size=(e, w), dtype=np.uint32)
+            b = rng.integers(0, 2**32, size=(e, w), dtype=np.uint32)
+            got = ops.bitmap_intersect_count(a, b, device=dev)
+            torch.cuda.synchronize()
+            want = bm.bitmap_intersect_count_ref(
+                torch.from_numpy(a.view(np.int32)).to(dev),
+                torch.from_numpy(b.view(np.int32)).to(dev))
+            if got.dtype != torch.int32 or got.shape != (e,):
+                raise RuntimeError(f"B2 output {got.dtype} {got.shape}")
+            err = int((got.long() - want.long()).abs().max())
+            worst = max(worst, err)
+            cases.append({"E": e, "W": w, "err": err})
+            if err:
+                raise RuntimeError(f"B2 {cases[-1]}: kernel != plain")
+    wa = rows_to_bitmap_words(heavy_a.cpu().numpy(), n)
+    wb = rows_to_bitmap_words(heavy_b.cpu().numpy(), n)
+    bm.reset_launches()
+    by_bitmap = ops.bitmap_intersect_count(wa, wb, device=dev)
+    cross_launches = bm.launches()
+    by_rows = ops.intersect_count(heavy_a, heavy_b, sentinel=sent)
+    err = int((by_bitmap.long() - by_rows.long()).abs().max())
+    worst = max(worst, err)
+    cases.append({"cross_check_vs_intersect_count": list(heavy_a.shape),
+                  "words": list(wa.shape), "err": err})
+    if err:
+        raise RuntimeError("B2 != B1 on the heavy edges of the full graph")
+    return cases, worst, cross_launches
+
+
+class CallRecorder:
+    """Wraps the streaming engine's two kernel entry points: counts calls,
+    keeps the inputs of the largest call of each route (to hold the kernel
+    against its plain version at the path's own shapes afterwards) and the
+    host seconds spent inside them. Launch counters stay in the wrappers."""
+
+    def __init__(self, incremental, torch):
+        self.mod = incremental
+        self.torch = torch
+        self.orig = {k: getattr(incremental, k) for k in
+                     ("resident_intersect_counts", "delta_intersect_counts")}
+        self.calls = {"vs_rows": 0, "vs_slots": 0, "delta": 0}
+        self.pairs = dict.fromkeys(self.calls, 0)
+        self.seconds = dict.fromkeys(self.calls, 0.0)
+        self.largest = {}
+
+    def _keep(self, route, e, args):
+        """``args()`` copies the call's inputs: only for a new largest."""
+        if e > self.largest.get(route, (0,))[0]:
+            self.largest[route] = (e, args())
+
+    def __enter__(self):
+        def resident(residency, slots_a, rows_b=None, *, slots_b=None, **kw):
+            route = "vs_slots" if slots_b is not None else "vs_rows"
+            t0 = time.perf_counter()
+            out = self.orig["resident_intersect_counts"](
+                residency, slots_a, rows_b, slots_b=slots_b, **kw)
+            self.seconds[route] += time.perf_counter() - t0
+            self.calls[route] += 1
+            self.pairs[route] += len(slots_a)
+            self._keep(route, len(slots_a), lambda: (
+                residency.clone(), slots_a.copy(),
+                None if rows_b is None else rows_b.copy(),
+                None if slots_b is None else slots_b.copy(),
+                kw["sentinel"], out))
+            return out
+
+        def delta(rows_a, rows_b, **kw):
+            t0 = time.perf_counter()
+            out = self.orig["delta_intersect_counts"](rows_a, rows_b, **kw)
+            self.seconds["delta"] += time.perf_counter() - t0
+            self.calls["delta"] += 1
+            self.pairs["delta"] += len(rows_a)
+            self._keep("delta", len(rows_a),
+                       lambda: (list(rows_a.shape), list(rows_b.shape)))
+            return out
+
+        self.mod.resident_intersect_counts = resident
+        self.mod.delta_intersect_counts = delta
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.mod, k, fn)
+
+    def recheck(self, dev, np):
+        """Largest B3 call of each variant, again: kernel vs plain version
+        on the same inputs. Returns ({variant: shape}, max_abs_err)."""
+        from repro_torch.kernels import resident_intersect as ri
+
+        torch = self.torch
+        shapes, worst = {}, 0
+        for route in ("vs_rows", "vs_slots"):
+            e, (res, sa, rows_b, slots_b, sent, got) = self.largest[route]
+            want = ri.resident_intersect_ref(
+                res, torch.from_numpy(sa.astype(np.int32)).to(dev),
+                None if rows_b is None else torch.from_numpy(rows_b).to(dev),
+                slots_b=(None if slots_b is None else
+                         torch.from_numpy(slots_b.astype(np.int32)).to(dev)),
+                sentinel=sent).cpu().numpy()
+            again = ri.resident_intersect_counts(
+                res, sa, rows_b, slots_b=slots_b, sentinel=sent, device=dev)
+            err = int(max(np.abs(got - want).max(), np.abs(again - want).max()))
+            worst = max(worst, err)
+            shapes[route] = {"residency": list(res.shape), "E": e,
+                             "WB": None if rows_b is None else rows_b.shape[1],
+                             "err": err}
+            if err:
+                raise RuntimeError(f"stream: B3 {route} kernel != plain "
+                                   f"at the path's largest call {shapes}")
+        return shapes, worst
+
+
+def kernel_rows(prof, torch):
+    """Device time by kernel name from a torch.profiler trace."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0)
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append({"name": ev.key[:80], "calls": ev.count,
+                         "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -122,6 +385,8 @@ def main() -> int:
     from repro_torch.core.rma import build_sharded_problem
     from repro_torch.graphs.rmat import rmat_graph
     from repro_torch.kernels import _build, intersect_count as ic, ops
+    from repro_torch.kernels import bitmap_popcount as bm
+    from repro_torch.kernels import resident_intersect as ri
     from repro_torch.kernels.point_query import batched_pair_counts
     from repro_torch.launch import lcc_run
 
@@ -136,17 +401,23 @@ def main() -> int:
           "device": kind, "nvidia_smi": smi})
 
     # -------------------------------------------------------------- build
-    info = _build.build_info("intersect_count")
-    regs = re.findall(r"Used (\d+) registers", info.ptxas)
-    smem = re.findall(r"(\d+) bytes smem", info.ptxas)
-    spills = re.findall(r"(\d+) bytes spill stores", info.ptxas)
-    emit({"phase": "build", "library": os.path.relpath(info.library, root),
-          "seconds": info.seconds,
-          "registers": [int(x) for x in regs],
-          "smem_bytes": [int(x) for x in smem] or [0],  # 0 is not printed
-          "spill_store_bytes": [int(x) for x in spills]})
-    if not regs:
-        raise RuntimeError(f"no ptxas report in build output:\n{info.ptxas}")
+    t0 = time.perf_counter()
+    infos = _build.build_all(LIBRARIES)  # one nvcc per source, in parallel
+    build_wall = time.perf_counter() - t0
+    libraries = []
+    for name, info in infos.items():
+        regs = re.findall(r"Used (\d+) registers", info.ptxas)
+        smem = re.findall(r"(\d+) bytes smem", info.ptxas)
+        spills = re.findall(r"(\d+) bytes spill stores", info.ptxas)
+        if not regs:
+            raise RuntimeError(
+                f"no ptxas report in build output of {name}:\n{info.ptxas}")
+        libraries.append({
+            "name": name, "library": os.path.relpath(info.library, root),
+            "seconds": info.seconds, "registers": [int(x) for x in regs],
+            "smem_bytes": [int(x) for x in smem] or [0],  # 0 is not printed
+            "spill_store_bytes": [int(x) for x in spills]})
+    emit({"phase": "build", "wall_s": build_wall, "libraries": libraries})
 
     # ---------------------------------------------- the full-size problem
     t0 = time.perf_counter()
@@ -207,13 +478,26 @@ def main() -> int:
     heavy = np.argsort(-(deg[src] + deg[dst]), kind="stable")[:512]
     wa_rows, wb_rows = operands(src[heavy], dst[heavy])
     check("wide_full_graph", wa_rows, wb_rows, sent)
-    del wa_rows, wb_rows, full_a, some_b
     check_launches = ic.launches()
+    ri.reset_launches()
+    res_cases, res_err = check_resident_intersect(dev, rng, np, torch)
+    res_check_launches = ri.launches()
+    bm_cases, bm_err, bm_path_launches = check_bitmap(
+        dev, rng, wa_rows, wb_rows, csr.n, sent, np, torch)
+    del wa_rows, wb_rows, full_a, some_b
     emit({"phase": "checks", "kernels": [{
         "name": "intersect_count",
         "source": "src/repro_torch/kernels/csrc/intersect_count.cu",
         "ok": True, "cases": checked, "launches": check_launches,
-        "max_abs_err": max_abs_err, "tolerance": 0}]})
+        "max_abs_err": max_abs_err, "tolerance": 0}, {
+        "name": "resident_intersect",
+        "source": "src/repro_torch/kernels/csrc/resident_intersect.cu",
+        "ok": True, "cases": res_cases, "launches": res_check_launches,
+        "max_abs_err": res_err, "tolerance": 0}, {
+        "name": "bitmap_intersect_count",
+        "source": "src/repro_torch/kernels/csrc/bitmap_popcount.cu",
+        "ok": True, "cases": bm_cases, "max_abs_err": bm_err,
+        "tolerance": 0, "cross_check_launches": bm_path_launches}]})
 
     # ------------------------------------------ main path: counters to 0
     ic.reset_launches()
@@ -327,6 +611,128 @@ def main() -> int:
         if n <= 0:
             raise RuntimeError(f"{tag}: the kernel was never launched")
 
+    # ------------------------------------- stream: counters to 0, run, read
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import stream_run
+    from repro_torch.streaming import incremental
+
+    ic.reset_launches()
+    ri.reset_launches()
+    bm.reset_launches()
+    run = {}
+    with CallRecorder(incremental, torch) as rec:
+        t0 = time.perf_counter()
+        rc = stream_run.main(STREAM_ARGV, result=run)
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    stream_launches = {"intersect_count": ic.launches(),
+                       "resident_intersect": ri.launches(),
+                       "bitmap_intersect_count": bm.launches()}
+    if rc != 0:
+        raise RuntimeError(f"stream_run.main returned {rc}")
+    if stream_launches["intersect_count"] <= 0:
+        raise RuntimeError("stream: intersect_count was never launched")
+    for variant, n in stream_launches["resident_intersect"].items():
+        if n <= 0:
+            raise RuntimeError(f"stream: resident_intersect {variant} was "
+                               "never launched")
+    s_eng = run["engine"]
+    s_rt = s_eng.runtime
+    s_eng.verify()  # the launcher verified every 4th batch; once more here
+    largest, stream_err = rec.recheck(dev, np)
+    ds = s_rt.merged_device_stats()
+    stream_out = {
+        "phase": "stream", "argv": " ".join(STREAM_ARGV), "rc": rc,
+        "seconds": stream_s, "batch_wall_s": run["wall_s"],
+        "effective_updates": s_eng.n_updates,
+        "updates_per_s": s_eng.n_updates / run["wall_s"],
+        "delta_pairs": s_eng.delta_pairs_total,
+        "oo_resident_pairs": s_eng.oo_resident_pairs,
+        "oo_host_bytes": s_eng.oo_host_bytes,
+        "triangles": s_eng.triangle_count,
+        "device_tier": {"resident_rows": s_rt.device.resident_rows,
+                        "slots": s_rt.device.slots,
+                        "max_width": s_rt.device.max_width,
+                        "hit_rate": ds.hit_rate,
+                        **dataclasses.asdict(ds)},
+        "kernel_launches": stream_launches,
+        "calls": rec.calls, "pairs": rec.pairs,
+        "host_s_in_kernel_calls": rec.seconds,
+        "largest_b3_calls": largest,
+        "largest_b1_call": rec.largest["delta"][1]}
+    del run, s_eng, s_rt, rec
+    # the same run again under torch.profiler, for the device rows only:
+    # the throughput above is the unprofiled run's
+    run_p = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc = stream_run.main(STREAM_ARGV, result=run_p)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"profiled stream_run.main returned {rc}")
+    prof_rows = kernel_rows(prof, torch)
+    by_kernel = {k: sum(r["device_ms"] for r in prof_rows if k in r["name"])
+                 for k in ("intersect_count_kernel",
+                           "resident_intersect_kernel")}
+    busy_ms = sum(r["device_ms"] for r in prof_rows)
+    if busy_ms > prof_s * 1e3:
+        raise RuntimeError(f"stream: device busy {busy_ms} ms exceeds the "
+                           f"profiled window {prof_s * 1e3} ms")
+    stream_out["profiled"] = {
+        "seconds": prof_s, "batch_wall_s": run_p["wall_s"],
+        "updates_per_s": run_p["engine"].n_updates / run_p["wall_s"],
+        "device_ms": {"busy": busy_ms, **by_kernel},
+        "kernel_device_share_of_batch_wall": (
+            sum(by_kernel.values()) / (run_p["wall_s"] * 1e3)),
+        "idle_share": 1.0 - busy_ms / (prof_s * 1e3),
+        "top_device_kernels": prof_rows[:8]}
+    del run_p, prof
+    emit({**stream_out, "verified": True})
+
+    # ----------------------------------------------------- stream_routes
+    routes_args = [stream_run.parse_args(ROUTES_ARGV),
+                   stream_run.parse_args(ROUTES_ARGV + ["--no-kernel"])]
+    ic.reset_launches()
+    ri.reset_launches()
+    t0 = time.perf_counter()
+    engines = [stream_run.build_engine(a, dev)[1:] for a in routes_args]
+    migrated = 0
+    for batch in stream_run.batches(routes_args[0]):
+        results = []
+        for eng, reb in engines:
+            results.append(dataclasses.asdict(eng.apply_batch(batch)))
+            plan = reb.maybe_rebalance(eng.store.degrees)
+            migrated += 0 if plan is None else plan.n_moved
+        (k_eng, _), (p_eng, _) = engines
+        if results[0] != results[1]:
+            raise RuntimeError(f"stream_routes: batch results differ "
+                               f"{results}")
+        if not (np.array_equal(k_eng.t, p_eng.t)
+                and np.array_equal(k_eng.lcc, p_eng.lcc)):
+            raise RuntimeError("stream_routes: kernel route != plain route")
+    for eng, _ in engines:
+        eng.verify()  # == triangles_per_vertex / lcc_scores of to_csr()
+    routes_launches = {"intersect_count": ic.launches(),
+                       "resident_intersect": ri.launches()}
+    if (routes_launches["intersect_count"] <= 0
+            or routes_launches["resident_intersect"]["vs_rows"] <= 0):
+        raise RuntimeError(f"stream_routes: a kernel was never launched "
+                           f"{routes_launches}")
+    emit({"phase": "stream_routes", "argv": " ".join(ROUTES_ARGV),
+          "plain_route_argv": "... --no-kernel",
+          "seconds": time.perf_counter() - t0,
+          "effective_updates": k_eng.n_updates,
+          "triangles": k_eng.triangle_count,
+          "oo_resident_pairs": k_eng.oo_resident_pairs,
+          "rows_migrated": migrated // 2,
+          "schedule_rebuilds": k_eng.runtime.schedule_rebuilds,
+          "kernel_route_equals_plain_route": True, "verified": True,
+          "kernel_launches": routes_launches})
+    del engines, k_eng, p_eng
+
     # ------------------------------------------------------------- timing
     # round 0 of the full-size schedule, all ranks, in the engine's slabs
     e_chunk = prob.e_max // prob.n_rounds
@@ -345,11 +751,9 @@ def main() -> int:
     na = (rows_a < sent).sum(1).to(torch.float64)
     nb = (rows_b < sent).sum(1).to(torch.float64)
     prefix_bytes = float((na.sum() + nb.sum()) * 4 + e_t * 4)
-    ns, nl = torch.minimum(na, nb), torch.maximum(na, nb)
-    compares = float((ns * torch.ceil(torch.log2(nl + 1))).sum()
-                     + 2 * e_t * math.ceil(math.log2(w + 1)))
+    b1_ops = pair_ops(na, nb, torch)
     bytes_ms = prefix_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = compares / OPS_PER_S * 1e3
+    ops_ms = b1_ops / OPS_PER_S * 1e3
     kernel_ms = cuda_ms(
         lambda: ops.intersect_count(rows_a, rows_b, sentinel=sent), reps=20,
         warmup=3)
@@ -365,22 +769,123 @@ def main() -> int:
                        count_bsearch_torch(rows_a, rows_b, sent))
     if not same:
         raise RuntimeError("timing: kernel != count_bsearch_torch")
+    del rows_a, rows_b
+
+    # B3 on the tier's shapes over the full-size graph: the TIER_ROWS
+    # highest-degree rows resident, padded to their maximum degree
+    deg = csr.degrees.astype(np.int64)
+    top = np.sort(np.argsort(-deg, kind="stable")[:TIER_ROWS])
+    w_res = int(deg[top].max())
+    residency = torch.from_numpy(padded(csr, top, w_res, sent, np)).to(dev)
+    n_res = torch.from_numpy(deg[top]).to(dev)  # valid length per slot
+    slot_of = np.full(csr.n, -1, np.int64)
+    slot_of[top] = np.arange(top.size)
+    s_src, s_dst = slot_of[src], slot_of[dst]
+    both = np.flatnonzero((s_src >= 0) & (s_dst >= 0))[:VS_SLOTS_PAIRS]
+    one = np.flatnonzero((s_src >= 0) != (s_dst >= 0))[:VS_ROWS_PAIRS]
+    res_end = np.where(s_src[one] >= 0, src[one], dst[one])
+    other = np.where(s_src[one] >= 0, dst[one], src[one])
+    w_other = int(deg[other].max())
+    sa = torch.from_numpy(s_src[both].astype(np.int32)).to(dev)
+    sb = torch.from_numpy(s_dst[both].astype(np.int32)).to(dev)
+    sr = torch.from_numpy(slot_of[res_end].astype(np.int32)).to(dev)
+    rows_o = torch.from_numpy(padded(csr, other, w_other, sent, np)).to(dev)
+    n_o = torch.from_numpy(deg[other]).to(dev)
+    # each resident row the pairs touch, read once
+    res_bytes_slots = float(deg[top][np.unique(np.concatenate(
+        [s_src[both], s_dst[both]]))].sum()) * 4
+    res_bytes_rows = float(deg[np.unique(res_end)].sum()) * 4
+    b3 = {}
+    for variant, e_v, run_k, run_p, na, nb, wb, in_bytes in (
+        ("vs_slots", both.size,
+         lambda k: ri.resident_intersect(residency, sa[:k], slots_b=sb[:k],
+                                         sentinel=sent),
+         lambda k: ri.resident_intersect_ref(residency, sa[:k],
+                                             slots_b=sb[:k], sentinel=sent),
+         n_res[sa.long()], n_res[sb.long()], w_res,
+         res_bytes_slots + 8.0 * both.size),
+        ("vs_rows", one.size,
+         lambda k: ri.resident_intersect(residency, sr[:k], rows_o[:k],
+                                         sentinel=sent),
+         lambda k: ri.resident_intersect_ref(residency, sr[:k], rows_o[:k],
+                                             sentinel=sent),
+         n_res[sr.long()], n_o, w_other,
+         res_bytes_rows + 4.0 * one.size + float(n_o.sum()) * 4),
+    ):
+        k_plain = e_v if variant == "vs_rows" else min(e_v,
+                                                       VS_SLOTS_PLAIN_PAIRS)
+        ms_k = min_ms(lambda: run_k(e_v))
+        ms_k_at_plain = min_ms(lambda: run_k(k_plain))
+        ms_p = cuda_ms(lambda: run_p(k_plain), reps=1, warmup=0)
+        err = int((run_k(e_v).long() - run_p(e_v).long()).abs().max()
+                  if variant == "vs_rows" else
+                  (run_k(k_plain).long() - run_p(k_plain).long()).abs().max())
+        if err:
+            raise RuntimeError(f"timing: B3 {variant} kernel != plain")
+        ops_v = pair_ops(na, nb, torch)
+        bnd, by = bound_ms(in_bytes + 4.0 * e_v, ops_v)
+        b3[variant] = {
+            "shape": {"residency": [TIER_ROWS, w_res], "E": int(e_v),
+                      "WB": int(wb)},
+            "ms": ms_k, "plain_ms": ms_p, "plain_pairs": int(k_plain),
+            "ms_at_plain_pairs": ms_k_at_plain, "err": err,
+            "bytes": in_bytes + 4.0 * e_v,
+            "per_pair_prefix_bytes": float((na.sum() + nb.sum()) * 4),
+            "ops": ops_v,
+            "bound_ms": bnd, "bound_by": by}
+    del residency, rows_o, sa, sb, sr
+
+    # B2 on 65,536 edges of the full-size graph packed over [0, n)
+    n_words = -(-csr.n // 32)
+    ids = csr.adjacencies.astype(np.int64)
+    # ids are distinct within a row, so a word's OR is the sum of its bits
+    vbm = np.bincount(
+        np.repeat(np.arange(csr.n, dtype=np.int64), deg) * n_words + ids // 32,
+        weights=np.ldexp(1.0, (ids % 32).astype(np.int32)),
+        minlength=csr.n * n_words).astype(np.uint32).reshape(csr.n, n_words)
+    pick = np.sort(np.random.default_rng(2).choice(csr.m, BITMAP_PAIRS,
+                                                   replace=False))
+    words_a = torch.from_numpy(vbm[src[pick]].view(np.int32)).to(dev)
+    words_b = torch.from_numpy(vbm[dst[pick]].view(np.int32)).to(dev)
+    del vbm
+    bm_ms = min_ms(lambda: ops.bitmap_intersect_count(words_a, words_b))
+    bm_plain_ms = cuda_ms(
+        lambda: bm.bitmap_intersect_count_ref(words_a, words_b), reps=3)
+    got_bm = ops.bitmap_intersect_count(words_a, words_b)
+    bm_timing_err = int((got_bm.long() - bm.bitmap_intersect_count_ref(
+        words_a, words_b).long()).abs().max())
+    if bm_timing_err:
+        raise RuntimeError("timing: B2 kernel != plain")
+    bm_shape = list(words_a.shape)
+    bm_bound, bm_by = bound_ms(2.0 * words_a.numel() * 4 + 4.0 * BITMAP_PAIRS,
+                               3.0 * words_a.numel())
+    del words_a, words_b
     emit({"phase": "timing", "shape": [e_t, w, w],
           "slabs_per_round": -(-u_glob.size // slab),
           "valid_prefix_bytes": prefix_bytes, "padded_bytes": 2.0 * e_t * w * 4,
-          "compares": compares, "kernel_ms": [kernel_ms, kernel_ms_again],
+          "ops": b1_ops, "kernel_ms": [kernel_ms, kernel_ms_again],
           "count_bsearch_torch_ms": bsearch_ms, "plain_ms": plain_ms,
-          "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms})
+          "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+          "resident_intersect": b3,
+          "bitmap_intersect_count": {
+              "shape": bm_shape, "ms": bm_ms, "plain_ms": bm_plain_ms,
+              "sum_counts": int(got_bm.long().sum()),
+              "bytes": 2.0 * bm_shape[0] * bm_shape[1] * 4 + 4.0 * bm_shape[0],
+              "bound_ms": bm_bound, "bound_by": bm_by}})
 
     # ------------------------------------------------------------ summary
     print(nvidia_smi_line(), flush=True)
+    b3_stream = stream_launches["resident_intersect"]
+    vs_rows = b3["vs_rows"]
     emit({"kernels": [{
         "name": "intersect_count", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/intersect_count.cu",
         "replaces": "src/repro/kernels/intersect_count.py:49",
-        "launches": main_path_launches,
+        "launches": main_path_launches + stream_launches["intersect_count"],
         "launches_entry": entry_launches, "launches_full": full_launches,
         "launches_pairs": pairs_launches,
+        "launches_stream": stream_launches["intersect_count"],
+        "launches_stream_routes": routes_launches["intersect_count"],
         "launches_per_epoch": launches_per_epoch,
         "max_abs_err": max_abs_err, "tolerance": 0,
         "shape": [e_t, w, w],
@@ -388,7 +893,27 @@ def main() -> int:
         "count_bsearch_torch_ms": bsearch_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}],
+        "library_ms": None}, {
+        "name": "resident_intersect", "route": "cuda", "ok": True,
+        "source": "src/repro_torch/kernels/csrc/resident_intersect.cu",
+        "replaces": "src/repro/kernels/resident_intersect.py:109",
+        "launches": sum(b3_stream.values()),
+        "launches_stream": b3_stream,
+        "launches_stream_routes": routes_launches["resident_intersect"],
+        "max_abs_err": max(res_err, stream_err), "tolerance": 0,
+        "shape": vs_rows["shape"], "ms": vs_rows["ms"],
+        "plain_ms": vs_rows["plain_ms"], "bound_ms": vs_rows["bound_ms"],
+        "bound_by": vs_rows["bound_by"], "library_ms": None,
+        "variants": b3}, {
+        "name": "bitmap_intersect_count", "route": "cuda", "ok": True,
+        "source": "src/repro_torch/kernels/csrc/bitmap_popcount.cu",
+        "replaces": "src/repro/kernels/bitmap_popcount.py:40",
+        "path": "no caller in the reference besides its op: its path here "
+                "is the checks cross-check against intersect_count",
+        "launches": bm_path_launches,
+        "max_abs_err": bm_err, "tolerance": 0, "shape": bm_shape,
+        "ms": bm_ms, "plain_ms": bm_plain_ms, "bound_ms": bm_bound,
+        "bound_by": bm_by, "library_ms": None}],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

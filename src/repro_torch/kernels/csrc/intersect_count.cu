@@ -13,18 +13,9 @@
 //
 // Bound: memory. The least work is one read of each row's valid prefix plus
 // one int32 store per pair, over the card's 3.35 TB/s; the arithmetic is a
-// few compares per element read. Design: one warp per pair.
-//   1. Every lane binary-searches the sentinel in each row (rows are sorted,
-//      so padding is a suffix): O(log W) broadcast loads find the valid
-//      lengths na, nb, and the padding is never touched again.
-//   2. The shorter prefix is walked with coalesced, lane-strided loads; each
-//      element is binary-searched in the longer prefix, which stays hot in
-//      L1/L2 for the warp. Work ~ min(na, nb) * log2 max(na, nb).
-//   3. __reduce_add_sync folds the 32 partial counts; lane 0 stores.
-// Validity is checked on the A side only, as in the reference: a valid id is
-// < sentinel and B's padding is >= sentinel, so restricting B to its valid
-// prefix drops no match, and sentinel == sentinel is never counted. Searching
-// the shorter row in the longer one relies on the rows being deduplicated.
+// few compares per element read. Design: one warp per pair, the sentinel-
+// prefix search and the search of the shorter prefix in the longer one of
+// warp_intersect.cuh (shared with resident_intersect.cu); lane 0 stores.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw
 // device pointers and the current stream, and raises on a non-zero return.
@@ -32,25 +23,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_intersect.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreads = kWarpsPerBlock * 32;
-
-// first index in row[0, n) whose value is >= key
-__device__ __forceinline__ int lower_bound(const int* __restrict__ row, int n,
-                                           int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (__ldg(row + mid) < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 __global__ void __launch_bounds__(kThreads)
 intersect_count_kernel(const int* __restrict__ rows_a,
@@ -61,28 +39,9 @@ intersect_count_kernel(const int* __restrict__ rows_a,
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (pair >= n_pairs) return;  // ragged edge: whole warps only, no sync below
   const int lane = threadIdx.x & 31;
-  const int* a = rows_a + pair * (long long)wa;
-  const int* b = rows_b + pair * (long long)wb;
-
-  const int na = lower_bound(a, wa, sentinel);
-  const int nb = lower_bound(b, wb, sentinel);
-  const int* s_row = a;
-  const int* l_row = b;
-  int ns = na, nl = nb;
-  if (na > nb) {
-    s_row = b;
-    l_row = a;
-    ns = nb;
-    nl = na;
-  }
-
-  int hits = 0;
-  for (int i = lane; i < ns; i += 32) {
-    const int x = __ldg(s_row + i);
-    const int pos = lower_bound(l_row, nl, x);
-    hits += (pos < nl && __ldg(l_row + pos) == x) ? 1 : 0;
-  }
-  hits = __reduce_add_sync(0xffffffffu, hits);
+  const int hits = warp_intersect::count(rows_a + pair * (long long)wa, wa,
+                                         rows_b + pair * (long long)wb, wb,
+                                         sentinel, lane);
   if (lane == 0) counts[pair] = hits;
 }
 

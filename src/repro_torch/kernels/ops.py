@@ -8,6 +8,7 @@ torch stand-in.
 """
 from __future__ import annotations
 
+from .bitmap_popcount import bitmap_intersect_count
 from .intersect_count import intersect_count
 
 __all__ = [
@@ -28,7 +29,6 @@ def _not_ported(name: str):
     return stub
 
 
-bitmap_intersect_count = _not_ported("bitmap_intersect_count")
 embedding_bag = _not_ported("embedding_bag")
 segment_sum_sorted = _not_ported("segment_sum_sorted")
 flash_attention_gqa = _not_ported("flash_attention_gqa")

@@ -3,6 +3,12 @@ kernels are held against). Each lives beside its kernel and is re-exported
 here; a kernel that is not ported yet has no entry."""
 from __future__ import annotations
 
+from .bitmap_popcount import bitmap_intersect_count_ref
 from .intersect_count import intersect_count_ref
+from .resident_intersect import resident_intersect_ref
 
-__all__ = ["intersect_count_ref"]
+__all__ = [
+    "intersect_count_ref",
+    "resident_intersect_ref",
+    "bitmap_intersect_count_ref",
+]

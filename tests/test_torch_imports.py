@@ -46,19 +46,26 @@ def test_no_jax_and_no_reference_package(import_report):
 
 @pytest.mark.parametrize("name", [
     "repro_torch.device",
+    "repro_torch.device.resolve", "repro_torch.device.residency",
     "repro_torch.core.async_engine", "repro_torch.core.cache",
     "repro_torch.core.csr", "repro_torch.core.intersect",
     "repro_torch.core.lcc", "repro_torch.core.partition",
-    "repro_torch.core.rma", "repro_torch.core.triangles",
+    "repro_torch.core.repartition", "repro_torch.core.rma",
+    "repro_torch.core.runtime", "repro_torch.core.triangles",
     "repro_torch.core.tric_baseline",
     "repro_torch.graphs.datasets", "repro_torch.graphs.rmat",
-    "repro_torch.kernels._build", "repro_torch.kernels.bucketing",
+    "repro_torch.kernels._build", "repro_torch.kernels.bitmap_popcount",
+    "repro_torch.kernels.bucketing",
     "repro_torch.kernels.delta_intersect",
     "repro_torch.kernels.intersect_count", "repro_torch.kernels.ops",
     "repro_torch.kernels.point_query", "repro_torch.kernels.ref",
-    "repro_torch.launch.lcc_run",
+    "repro_torch.kernels.resident_intersect",
+    "repro_torch.launch.lcc_run", "repro_torch.launch.stream_run",
     "repro_torch.obs.cachescope", "repro_torch.obs.metrics",
     "repro_torch.obs.trace",
+    "repro_torch.streaming", "repro_torch.streaming.coherence",
+    "repro_torch.streaming.incremental", "repro_torch.streaming.store",
+    "repro_torch.streaming.updates",
 ])
 def test_submodule_was_imported(import_report, name):
     assert name in import_report["imported"]
@@ -86,9 +93,15 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     import torch
 
     from repro_torch.core import async_engine, rma, tric_baseline
+    from repro_torch.core.runtime import ShardedRuntime
+    from repro_torch.device import ResidencyManager
     from repro_torch.graphs.datasets import powerlaw_graph
-    from repro_torch.kernels import delta_intersect, point_query
-    from repro_torch.launch import lcc_run
+    from repro_torch.kernels import delta_intersect, ops, point_query
+    from repro_torch.kernels.resident_intersect import (
+        resident_intersect_counts,
+    )
+    from repro_torch.launch import lcc_run, stream_run
+    from repro_torch.streaming import DynamicCSR, StreamingLCCEngine
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
@@ -105,6 +118,13 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         lambda: point_query.batched_pair_counts([rows[0]], [rows[0]],
                                                 sentinel=9, use_kernel=True),
         lambda: lcc_run.main(["--scale", "6", "--p", "2"]),
+        lambda: stream_run.main(["--scale", "6", "--batches", "2"]),
+        lambda: StreamingLCCEngine(g),
+        lambda: ResidencyManager(DynamicCSR.from_csr(g), slots=4),
+        lambda: ShardedRuntime(DynamicCSR.from_csr(g), 2, device_slots=4),
+        lambda: resident_intersect_counts(rows, np.array([0]),
+                                          slots_b=np.array([1]), sentinel=9),
+        lambda: ops.bitmap_intersect_count(rows, rows),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -16,6 +16,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import point_query as ref_pq
 from repro.kernels import ref as ref_ref
 from repro_torch.kernels import bucketing, delta_intersect, ops, point_query, ref
+from repro_torch.kernels import bitmap_popcount as bm
 from repro_torch.kernels import intersect_count as ic
 
 SENT = 4096
@@ -125,12 +126,90 @@ def test_cpu_path_launches_no_kernel():
 
 
 @pytest.mark.parametrize("name", [
-    "bitmap_intersect_count", "embedding_bag", "segment_sum_sorted",
-    "flash_attention_gqa",
+    "embedding_bag", "segment_sum_sorted", "flash_attention_gqa",
 ])
 def test_unported_kernels_raise(name):
     with pytest.raises(NotImplementedError, match=f"not ported yet: {name}"):
         getattr(ops, name)()
+
+
+# --------------------------------------------------------------------------
+# bitmap_intersect_count (B2) vs the Pallas kernel (interpret mode)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("e,w,block_e", [(256, 8, 128), (512, 33, 256)])
+def test_bitmap_intersect_count_matches_reference(e, w, block_e):
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 2**32, size=(e, w), dtype=np.uint32)
+    b = rng.integers(0, 2**32, size=(e, w), dtype=np.uint32)
+    want = ref_ops.bitmap_intersect_count(jnp.asarray(a), jnp.asarray(b),
+                                          block_e=block_e, interpret=True)
+    assert np.asarray(want).dtype == np.int32
+    bm.reset_launches()
+    # int32 bit patterns as tensors, uint32 tensors, and numpy words
+    for wa, wb in ((torch.from_numpy(a.view(np.int32)),
+                    torch.from_numpy(b.view(np.int32))),
+                   (torch.from_numpy(a.view(np.int32)).view(torch.uint32),
+                    torch.from_numpy(b.view(np.int32)).view(torch.uint32))):
+        got = ops.bitmap_intersect_count(wa, wb)
+        assert got.dtype == torch.int32 and got.device.type == "cpu"
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    got = ops.bitmap_intersect_count(a, b, device="cpu")
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(
+        ref.bitmap_intersect_count_ref(torch.from_numpy(a.view(np.int32)),
+                                       torch.from_numpy(b.view(np.int32))
+                                       ).numpy(),
+        np.asarray(want))
+    assert bm.launches() == 0  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("e,w", [(1, 1), (3, 3), (257, 5), (1000, 64)])
+def test_bitmap_any_e_matches_reference_oracle(e, w):
+    """E need not be a multiple of 256 (the Pallas kernel's block): held
+    against the reference's jnp oracle."""
+    rng = np.random.default_rng(e + w)
+    a = rng.integers(0, 2**32, size=(e, w), dtype=np.uint32)
+    b = rng.integers(0, 2**32, size=(e, w), dtype=np.uint32)
+    a[0] = 0xFFFFFFFF
+    b[0] = 0xFFFFFFFF  # every bit set: 32 * w
+    want = np.asarray(ref_ref.bitmap_intersect_count_ref(jnp.asarray(a),
+                                                         jnp.asarray(b)))
+    got = ops.bitmap_intersect_count(a, b, device="cpu")
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert int(got[0]) == 32 * w
+
+
+def test_bitmap_vs_rows_cross_check():
+    """B2 == B1 on the same sets, packed with ``rows_to_bitmap_words`` —
+    and both equal the reference's Pallas kernels on them."""
+    from repro_torch.core.csr import rows_to_bitmap_words
+
+    rng = np.random.default_rng(6)
+    e, w, sent = 128, 24, 512
+    a = pad_sorted(rng, e, w, sent)
+    b = pad_sorted(rng, e, w, sent)
+    c1 = port_count(a, b, sentinel=sent)
+    wa, wb = rows_to_bitmap_words(a, sent), rows_to_bitmap_words(b, sent)
+    c2 = ops.bitmap_intersect_count(wa, wb, device="cpu").numpy()
+    assert np.array_equal(c1, c2)
+    ref_c2 = ref_ops.bitmap_intersect_count(jnp.asarray(wa), jnp.asarray(wb),
+                                            block_e=64, interpret=True)
+    assert np.array_equal(c2, np.asarray(ref_c2))
+
+
+def test_bitmap_checks_its_inputs():
+    a = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        ops.bitmap_intersect_count(a.long(), a)
+    with pytest.raises(ValueError, match="shapes differ"):
+        ops.bitmap_intersect_count(a, a[:3])
+    with pytest.raises(ValueError):
+        ops.bitmap_intersect_count(a[0], a[0])
+    with pytest.raises(TypeError):
+        ops.bitmap_intersect_count(np.zeros((2, 2), np.int64),
+                                   np.zeros((2, 2), np.int64), device="cpu")
+    assert ops.bitmap_intersect_count(a[:0], a[:0]).shape == (0,)
 
 
 # --------------------------------------------------------------------------
