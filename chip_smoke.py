@@ -7,17 +7,24 @@ Needs one CUDA device, ``nvcc`` and nothing else; it imports ``torch`` and
 ``numpy`` and the port, never ``jax`` and never the reference package. It
 builds every hand-written kernel from the sources in this checkout (one
 ``nvcc`` per source, started together), holds each against its plain torch
-version on the card (integers: bit for bit, tolerance 0), drives the port's
-two paths — the paper's LCC pipeline and the streaming path with the device
-tier — through their public entry points, and fails (non-zero exit) if any
-phase fails. Each phase prints one JSON object on a line of its own:
+version on the card (integers: bit for bit, tolerance 0; floats at the
+stated tolerances), drives the port's three paths — the paper's LCC
+pipeline, the streaming path with the device tier, and serving
+(gemma2-27b prefill + decode, DIN scoring) — through their public entry
+points, and fails (non-zero exit) if any phase fails. Each phase prints one
+JSON object on a line of its own:
 
   env      versions, device name, ``nvidia-smi`` name and power limit
   build    seconds to build each library, ``-Xptxas -v`` registers / smem
-  checks   kernel vs plain version at the listed shapes: B1
-           (``intersect_count``); B3 (``resident_intersect``, both variants,
-           E in {0,1,7,64,130,1000}, WB in {0,4,32,200}, evicted slots,
-           S = 1 and 4,096, an out-of-range slot raises); B2
+  checks   kernel vs plain version at the listed shapes: B8
+           (``flash_attention``: causal, window 0/64/4,096, softcap 0/50,
+           non-causal, G 1/2, dh 64/128/256, S that no tile divides, fp32,
+           fp16, and gemma2-27b's layer [1, 8192, 16, 2, 128] in bf16); B10
+           (``embedding_bag``: the reference's test shapes, D = 18 / L =
+           100, fp32/bf16/fp16 tables, sum and mean, an all-masked bag,
+           B = 333); B1 (``intersect_count``); B3 (``resident_intersect``,
+           both variants, E in {0,1,7,64,130,1000}, WB in {0,4,32,200},
+           evicted slots, S = 1 and 4,096, an out-of-range slot raises); B2
            (``bitmap_intersect_count``, E x W in {1,3,256,1000} x
            {1,3,128,2048}) and B2 against B1 on 512 heavy edges of the S16
            graph packed over [0, n)
@@ -37,22 +44,43 @@ phase fails. Each phase prints one JSON object on a line of its own:
            ``stream_run.build_engine`` from the launcher's flags, with and
            without ``--no-kernel``: bit-equal after every batch, both
            verified
+  serve_lm ``repro_torch.launch.serve.main`` on gemma2-27b at full width
+           and depth (46 layers, ~55 GB of bf16 weights; the graph phases'
+           device tensors are freed first): the launcher's default 32-token
+           prompt (dense attention, 0 B8 launches), then a prompt of 8,192
+           tokens, batch 1, 16 greedy tokens (46 B8 launches); prefill ms,
+           decode ms/token, tokens/s, peak memory; the last-token logits
+           held against the plain route (B8's plain version) on the same
+           weights; a second prefill, and a profiled one for the device
+           split (B8, GEMMs, the rest) and the idle share; 16 decode steps
+           timed one by one (median, min, max ms/token) and 4 profiled ones
+           (device ms and launches per token, idle share)
+  serve_din ``serve.main --arch din --batch 512`` at the full config
+           (10^8 x 18 fp32 item table on the card): ms per batch, req/s
+           (the launcher's mean of 3 batches, and 200 batches timed one by
+           one: median, p99, min, max); ``bag_fixed`` on the batch's
+           history ids (through B10) held against its plain version
   timing   each kernel at full-size shapes (CUDA events) beside its plain
-           version and its bound: B1 at the engine's per-round slab, B3 on
-           the 4,096 top-degree rows of the S16 graph, B2 on 65,536 edges
-           packed over [0, 65,536)
+           version, its bound and, where one exists, one PyTorch call of
+           the same function: B1 at the engine's per-round slab, B3 on the
+           4,096 top-degree rows of the S16 graph, B2 on 65,536 edges
+           packed over [0, 65,536), B8 at gemma2-27b's prefill layer (global
+           and local; ``F.scaled_dot_product_attention``, causal for global,
+           a boolean causal-window mask for local), B10 at serve_bulk
+           (262,144 x 100 ids over the 10^8-row table; ``F.embedding_bag``)
 
 then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``. The launch counts in the summary are read
 from the wrappers' counters, set to 0 just before each path (``entry``
-through ``pairs``; ``stream``; ``stream_routes``) and read just after it;
-launches made by ``checks`` and ``timing`` are not in them, except for B2,
-whose only path is its cross-check against B1 (the reference has no other
-caller of it).
+through ``pairs``; ``stream``; ``stream_routes``; the 8,192-token
+``serve_lm`` run; ``serve_din``) and read just after it; launches made by
+``checks`` and ``timing`` are not in them, except for B2, whose only path is
+its cross-check against B1 (the reference has no other caller of it).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -68,7 +96,8 @@ RANKS = 8
 CACHE_ROWS = 256
 FULL_ROUNDS = 32
 N_PAIRS = 100_000
-LIBRARIES = ("intersect_count", "resident_intersect", "bitmap_popcount")
+LIBRARIES = ("intersect_count", "resident_intersect", "bitmap_popcount",
+             "flash_attention", "embedding_bag")
 STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
@@ -87,6 +116,36 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # fp32 CUDA-core peak of the data sheet; taken as the rate of the int32
 # compares too (an upper bound of it, so the bound stays a lower bound)
 OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, the same sheet
+# the serving path: gemma2-27b at full width and depth, a prompt of the
+# reference's flash cutoff (8,192; its shape prefill_32k is 32,768 x 32),
+# batch 1, 16 greedy tokens; then the launcher's defaults (dense attention)
+LM_ARGV = ["--arch", "gemma2-27b", "--prompt", "8192", "--batch", "1",
+           "--tokens", "16"]
+LM_SHORT_ARGV = ["--arch", "gemma2-27b"]
+DECODE_PROFILED = 4  # decode steps traced for the device split
+# steps timed one by one (synchronised) for the spread of the host clock:
+# the launcher's own windows (16 tokens; DIN's 3 batches) are too short to
+# give a stable number on their own
+DECODE_STEADY = 16
+DIN_STEADY = 200
+DIN_ARGV = ["--arch", "din", "--batch", "512"]  # serve_p99 at the full config
+BULK_BAGS = 262_144  # serve_bulk: the B10 timing's batch
+# kernel route vs plain route, last-token logits of the 46-layer bf16 model:
+# relative L2 error. The two differ only in B8's summation order: its bf16
+# outputs an ulp (2^-8 relative) apart, which 46 residual layers carry into
+# the logits at the percent level, not beyond a few.
+LOGITS_REL_TOL = 5e-2
+# B8 vs its plain version. fp32: the reference kernel test's 2e-5 as
+# atol + rtol * max|plain| (the two differ in summation order only).
+# bf16/fp16: both round one fp32 result to the output dtype, so each element
+# may differ by one ulp of it (2^-7 / 2^-10 of its size) plus FLASH_ATOL for
+# the fp32 summation noise near 0. Leaving out one 64-key tile of a late
+# row's 8,192 keys moves that row's outputs by ~1e-3.
+FLASH_TOL = {"float32": 2e-5}
+FLASH_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+FLASH_ATOL = 1e-4
+BAG_TOL = 2e-3  # the reference's embedding-bag test tolerance
 
 
 def emit(obj) -> None:
@@ -368,6 +427,441 @@ def kernel_rows(prof, torch):
     return rows
 
 
+def attention_work(s, t, kh, g, dh, causal, window, itemsize):
+    """(FLOP, bytes) of B8 at one shape: 4 * dh FLOP per live (query, key)
+    pair, the causal limit and the window counted exactly; q, k, v read
+    once and out written once."""
+    import numpy as np
+
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i + 1, t) if causal else np.full(s, t, np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(s,
+                                                                   np.int64)
+    pairs = float(np.clip(hi - lo, 0, None).sum()) * kh * g
+    nbytes = (2.0 * s * kh * g * dh + 2.0 * t * kh * dh) * itemsize
+    return pairs * 4 * dh, nbytes
+
+
+def check_flash(dev, rng, np, torch):
+    """B8 vs its plain version: (causal, window in {0, 64, 4096}, softcap
+    in {0, 50}) and non-causal, x G in {1, 2} x dh in {64, 128}, at S that
+    no tile divides (300, and 4,500 for the 4,096 window), fp32; fp16 and
+    dh 256; the full gemma2-27b layer shape [1, 8192, 16, 2, 128] in bf16,
+    global and local. Returns (cases, max_abs_err, launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import flash_attention_torch
+
+    def inputs(b, s, kh, g, dh, dtype):
+        shapes = ((b, s, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))
+        return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+                .to(dev, dtype) for sh in shapes]
+
+    cases, worst = [], 0.0
+    plan = []
+    for causal, window, cap in ((True, 0, 0.0), (True, 0, 50.0),
+                                (True, 64, 0.0), (True, 64, 50.0),
+                                (True, 4096, 0.0), (True, 4096, 50.0),
+                                (False, 0, 0.0)):
+        for g in (1, 2):
+            for dh in (64, 128):
+                s = 4500 if window == 4096 else 300
+                plan.append((1, s, 2, g, dh, causal, window, cap,
+                             torch.float32))
+    plan += [(2, 333, 3, 2, 64, True, 100, 30.0, torch.float16),
+             (1, 257, 2, 2, 256, True, 64, 50.0, torch.float32),
+             (1, 8192, 16, 2, 128, True, 0, 50.0, torch.bfloat16),
+             (1, 8192, 16, 2, 128, True, 4096, 50.0, torch.bfloat16)]
+    fa.reset_launches()
+    for b, s, kh, g, dh, causal, window, cap, dtype in plan:
+        q, k, v = inputs(b, s, kh, g, dh, dtype)
+        kw = dict(scale=dh ** -0.5, causal=causal, window=window, softcap=cap)
+        got = ops.flash_attention_gqa(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_torch(q, k, v, **kw)
+        if got.dtype != dtype or got.shape != q.shape:
+            raise RuntimeError(f"B8 output {got.dtype} {tuple(got.shape)}")
+        want = want.float()
+        diff = (got.float() - want).abs()
+        err = float(diff.max())
+        name = str(dtype)[6:]
+        if name in FLASH_ULP:  # element by element
+            over = float((diff / (FLASH_ULP[name] * want.abs()
+                                  + FLASH_ATOL)).max())
+        else:
+            over = err / (FLASH_TOL[name] * (1 + float(want.abs().max())))
+        worst = max(worst, err)
+        cases.append({"shape": [b, s, kh, g, dh], "causal": causal,
+                      "window": window, "softcap": cap, "dtype": name,
+                      "err": err, "err_over_limit": over})
+        if not over <= 1.0:
+            raise RuntimeError(f"B8 {cases[-1]}: kernel != plain")
+        del q, k, v, got, want, diff
+    return cases, worst, fa.launches()
+
+
+def check_bag(dev, rng, np, torch):
+    """B10 vs its plain version: the reference's test shapes, D = 18 /
+    L = 100, fp32/bf16/fp16 tables, sum and mean, an all-masked bag, B not
+    a multiple of 8. Returns (cases, max_abs_err, launches)."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+
+    plan = [(64, 16, 16, 4, "sum", torch.float32),
+            (128, 32, 8, 7, "mean", torch.float32),
+            (64, 8, 16, 3, "sum", torch.float16)]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for mode in ("sum", "mean"):
+            plan.append((100_000, 18, 333, 100, mode, dtype))
+    cases, worst = [], 0.0
+    eb.reset_launches()
+    for n, d, b, l, mode, dtype in plan:
+        table = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)
+                                 ).to(dev, dtype)
+        ids = torch.from_numpy(rng.integers(0, n, (b, l), dtype=np.int32)
+                               ).to(dev)
+        mask = torch.from_numpy(rng.random((b, l)) < 0.8).to(dev)
+        mask[1] = False
+        got = ops.embedding_bag(table, ids, mask, mode=mode)
+        torch.cuda.synchronize()
+        want = eb.embedding_bag_ref(table, ids, mask, mode=mode)
+        if got.dtype != torch.float32 or got.shape != (b, d):
+            raise RuntimeError(f"B10 output {got.dtype} {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        cases.append({"N": n, "D": d, "B": b, "L": l, "mode": mode,
+                      "dtype": str(dtype)[6:], "err": err,
+                      "all_masked_bag_is_0": not bool(got[1].any())})
+        if not (err <= BAG_TOL * (1 + float(want.abs().max()))
+                and cases[-1]["all_masked_bag_is_0"]):
+            raise RuntimeError(f"B10 {cases[-1]}: kernel != plain")
+    return cases, worst, eb.launches()
+
+
+def split_device_time(rows):
+    """Device ms of B8, of the GEMMs (cuBLAS kernel names) and of the
+    rest, from ``kernel_rows``."""
+    gemm = re.compile(r"gemm|xmma|nvjet|cutlass", re.I)
+    b8 = sum(r["device_ms"] for r in rows
+             if "flash_attention_kernel" in r["name"])
+    mm = sum(r["device_ms"] for r in rows
+             if gemm.search(r["name"]) and "flash_attention" not in r["name"])
+    busy = sum(r["device_ms"] for r in rows)
+    return {"busy": busy, "flash_attention": b8, "gemm": mm,
+            "other": busy - b8 - mm}
+
+
+def phase_serve_lm(np, torch):
+    """gemma2-27b through ``repro_torch.launch.serve``: the launcher's
+    default 32-token prompt (dense attention, B8 never launched), then the
+    8,192-token prompt (B8 once per layer), its last-token logits held
+    against the plain route (B8's plain version) on the same weights, a
+    second prefill for the steady time and a profiled one for the device
+    split, and a few profiled decode steps. Returns (phase record, B8
+    launches on the path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import flash_attention_torch
+
+    def launcher(argv):
+        torch.cuda.reset_peak_memory_stats()
+        run = {}
+        t0 = time.perf_counter()
+        rc = serve.main(argv, result=run)
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"serve.main {argv} returned {rc}")
+        cfg, logits = run["cfg"], run["prefill_logits"]
+        batch, prompt = run["prompts"].shape
+        tokens = run["tokens"].shape[1] - 1
+        if (logits.shape != (batch, cfg.vocab)
+                or not bool(torch.isfinite(logits).all())
+                or float(logits.abs().max()) > cfg.final_softcap):
+            raise RuntimeError(f"serve {argv}: bad logits {logits.shape}")
+        rec = {"argv": " ".join(argv), "seconds": seconds,
+               "layers": cfg.n_layers, "d_model": cfg.d_model,
+               "params": cfg.param_count(), "batch": batch,
+               "prompt": prompt, "tokens": tokens,
+               "prefill_ms": run["prefill_s"] * 1e3,
+               "decode_ms_per_token": run["decode_s"] / tokens * 1e3,
+               "tokens_per_s": batch * tokens / run["decode_s"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "first_tokens": run["tokens"][0, :8].tolist()}
+        return run, rec
+
+    fa.reset_launches()
+    run, short = launcher(LM_SHORT_ARGV)
+    short["flash_attention_launches"] = fa.launches()
+    if short["flash_attention_launches"] != 0:
+        raise RuntimeError("serve_lm: a 32-token prompt launched B8")
+    del run
+    torch.cuda.empty_cache()
+
+    # ---- the main path: counters to 0, run, read
+    fa.reset_launches()
+    run, rec = launcher(LM_ARGV)
+    b8_launches = fa.launches()
+    cfg = run["cfg"]
+    if b8_launches != cfg.n_layers:
+        raise RuntimeError(f"serve_lm: B8 launched {b8_launches} times, "
+                           f"expected one per layer ({cfg.n_layers})")
+    rec["flash_attention_launches"] = b8_launches
+    params, prompts = run["params"], run["prompts"]
+    max_len = prompts.shape[1] + rec["tokens"]
+    kernel_logits = run["prefill_logits"].float()
+    del run
+
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = tfm.forward_prefill(params, prompts, cfg,
+                                            max_len=max_len)
+        torch.cuda.synchronize()
+        return logits.float(), (time.perf_counter() - t0) * 1e3
+
+    again, rec["prefill_ms_again"] = prefill()
+    real = ops.flash_attention_gqa
+    ops.flash_attention_gqa = flash_attention_torch  # the plain route
+    try:
+        plain_logits, rec["plain_route_prefill_ms"] = prefill()
+    finally:
+        ops.flash_attention_gqa = real
+    diff = kernel_logits - plain_logits
+    rel = float(diff.norm() / plain_logits.norm())
+    rec["kernel_vs_plain_route"] = {
+        "rel_l2": rel, "tolerance": LOGITS_REL_TOL,
+        "max_abs": float(diff.abs().max()),
+        "argmax_equal": bool(torch.equal(kernel_logits.argmax(-1),
+                                         plain_logits.argmax(-1))),
+        "again_max_abs": float((again - kernel_logits).abs().max())}
+    if not rel <= LOGITS_REL_TOL:
+        raise RuntimeError(f"serve_lm: kernel route != plain route "
+                           f"{rec['kernel_vs_plain_route']}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, window_ms = prefill()
+    rows = kernel_rows(prof, torch)
+    split = split_device_time(rows)
+    if split["busy"] > window_ms:
+        raise RuntimeError("serve_lm: device busy time exceeds the window")
+    rec["profiled_prefill"] = {
+        "window_ms": window_ms, "device_ms": split,
+        "idle_share": 1.0 - split["busy"] / window_ms,
+        "top_device_kernels": rows[:10]}
+    del prof
+    # decode steps timed one by one (the spread of the host clock), then a
+    # few under the profiler: device time per token against the host clock,
+    # and the launches one token costs
+    with torch.inference_mode():
+        logits, cache = tfm.forward_prefill(
+            params, prompts, cfg,
+            max_len=prompts.shape[1] + DECODE_STEADY + DECODE_PROFILED)
+        pos = prompts.shape[1]
+        per_token = []
+        for i in range(DECODE_STEADY):
+            tok = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = tfm.forward_decode(params, tok, pos + i, cache,
+                                               cfg)
+            torch.cuda.synchronize()
+            per_token.append((time.perf_counter() - t0) * 1e3)
+        rec["decode_steady"] = {
+            "tokens": DECODE_STEADY,
+            "median_ms": statistics.median(per_token),
+            "min_ms": min(per_token), "max_ms": max(per_token)}
+        pos += DECODE_STEADY
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(DECODE_PROFILED):
+                tok = logits.argmax(-1).to(torch.int32)
+                logits, cache = tfm.forward_decode(params, tok, pos + i,
+                                                   cache, cfg)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof, torch)
+    busy = sum(r["device_ms"] for r in rows)
+    rec["profiled_decode"] = {
+        "tokens": DECODE_PROFILED,
+        "window_ms_per_token": window_ms / DECODE_PROFILED,
+        "device_ms_per_token": busy / DECODE_PROFILED,
+        "launches_per_token": sum(r["calls"] for r in rows) / DECODE_PROFILED,
+        "idle_share": 1.0 - busy / window_ms,
+        "top_device_kernels": rows[:6]}
+    del params, prompts, prof, cache, logits
+    torch.cuda.empty_cache()
+    return {"phase": "serve_lm", **rec, "dense_prompt_run": short}, \
+        b8_launches
+
+
+def phase_serve_din(np, torch):
+    """DIN at the full config through ``repro_torch.launch.serve`` (512
+    requests), then ``bag_fixed`` on the served batch's history ids through
+    B10, held against its plain version. Returns (phase record, B10
+    launches on the path, the item table for the timing)."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.launch import serve
+    from repro_torch.models.recsys import din, embedding
+    from repro_torch.train import train_loop as tl
+
+    eb.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = {}
+    t0 = time.perf_counter()
+    rc = serve.main(DIN_ARGV, result=run)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"serve.main {DIN_ARGV} returned {rc}")
+    cfg, table = run["cfg"], run["params"]["item_table"]
+    batch = run["batches"][0]
+    pooled = {mode: embedding.bag_fixed(table, batch["hist_items"],
+                                        batch["hist_mask"], mode=mode)
+              for mode in ("sum", "mean")}
+    torch.cuda.synchronize()
+    b10_launches = eb.launches()
+    if b10_launches <= 0:
+        raise RuntimeError("serve_din: B10 was never launched")
+    errs = {}
+    for mode, got in pooled.items():
+        want = eb.embedding_bag_ref(table, batch["hist_items"],
+                                    batch["hist_mask"], mode=mode)
+        errs[mode] = float((got - want).abs().max())
+        if not errs[mode] <= BAG_TOL * (1 + float(want.abs().max())):
+            raise RuntimeError(f"serve_din: B10 != plain ({mode})")
+    n_req = run["probs"][0].shape[0]
+    for p in run["probs"]:
+        if p.shape != (n_req,) or not bool(((p >= 0) & (p <= 1)).all()):
+            raise RuntimeError("serve_din: probabilities outside [0, 1]")
+    rec = {"phase": "serve_din", "argv": " ".join(DIN_ARGV),
+           "seconds": seconds, "requests": n_req,
+           "n_items": cfg.n_items, "embed_dim": cfg.embed_dim,
+           "item_table_bytes": table.numel() * table.element_size(),
+           "ms_per_batch": run["batch_s"] * 1e3,
+           "requests_per_s": n_req / run["batch_s"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "steady": din_steady(run, din, tl, torch),
+           "mean_ctr": float(torch.stack(run["probs"]).mean()),
+           "bag_fixed": {"ids": list(batch["hist_items"].shape),
+                         "launches": b10_launches, "err": errs,
+                         "tolerance": BAG_TOL}}
+    return rec, b10_launches, table
+
+
+def din_steady(run, din, tl, torch):
+    """The launcher's DIN step over its device batches, ``DIN_STEADY``
+    times, each call timed alone (host clock, synchronised): the spread of
+    ms per batch."""
+    step = tl.make_recsys_serve_step(din.apply, run["cfg"])
+    batches = run["batches"]
+    ms = []
+    with torch.inference_mode():
+        for i in range(DIN_STEADY):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(run["params"], batches[i % len(batches)])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    n_req = batches[0]["hist_items"].shape[0]
+    med = statistics.median(ms)
+    return {"batches": DIN_STEADY, "median_ms": med, "min_ms": ms[0],
+            "p99_ms": ms[int(0.99 * (len(ms) - 1))], "max_ms": ms[-1],
+            "requests_per_s_at_median": n_req / med * 1e3}
+
+
+def time_flash(np, torch):
+    """B8 at gemma2-27b's prefill layer shape, bf16: kernel, plain version,
+    bound, and ``F.scaled_dot_product_attention`` with softcap 0 (no single
+    call has it) as the library yardstick: causal with GQA for the global
+    layer; for the local layer the causal window as a boolean mask, K/V
+    repeated to the query heads beforehand (outside the clock)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import flash_attention_torch
+
+    s, kh, g, dh = 8192, 16, 2, 128
+    gen = torch.Generator("cuda").manual_seed(0)
+    q = torch.randn((1, s, kh, g, dh), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, s, kh, dh), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((1, s, kh, dh), generator=gen, device="cuda").bfloat16()
+    out = {}
+    for layer, window in (("global", 0), ("local", 4096)):
+        kw = dict(scale=144 ** -0.5, causal=True, window=window, softcap=50.0)
+        ms = min_ms(lambda: ops.flash_attention_gqa(q, k, v, **kw), reps=5,
+                    warmup=1)
+        plain = cuda_ms(lambda: flash_attention_torch(q, k, v, **kw),
+                        reps=1, warmup=1)
+        flops, nbytes = attention_work(s, s, kh, g, dh, True, window, 2)
+        bnd, by = bound_ms(nbytes, 0.0)
+        f_ms = flops / BF16_FLOPS_PER_S * 1e3
+        if f_ms > bnd:
+            bnd, by = f_ms, "operations"
+        out[layer] = {"shape": [1, s, kh, g, dh], "window": window,
+                      "softcap": 50.0, "ms": ms, "plain_ms": plain,
+                      "flop": flops, "bytes": nbytes, "bound_ms": bnd,
+                      "bound_by": by, "tflops": flops / ms / 1e9}
+    qh = q.reshape(1, s, kh * g, dh).transpose(1, 2)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    lib = min_ms(lambda: F.scaled_dot_product_attention(
+        qh, kt, vt, is_causal=True, scale=144 ** -0.5, enable_gqa=True),
+        reps=5, warmup=1)
+    out["global"]["library_ms"] = lib
+    i = torch.arange(s, device="cuda")
+    live = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < 4096)
+    kr, vr = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
+    out["local"]["library_ms"] = min_ms(
+        lambda: F.scaled_dot_product_attention(
+            qh, kr, vr, attn_mask=live, scale=144 ** -0.5),
+        reps=5, warmup=1)
+    out["library_call"] = (
+        "F.scaled_dot_product_attention, softcap 0: global is_causal=True, "
+        "enable_gqa=True; local attn_mask = causal & window 4,096 (bool), "
+        "K/V repeated to 32 heads first")
+    return out
+
+
+def time_bag(table, np, torch):
+    """B10 at serve_bulk (262,144 DIN histories of 100 ids, the CTR
+    stream's Zipf ids) over the full 10^8-row item table: kernel, plain
+    version, bound (unique rows touched + ids + weights + output over
+    HBM), and ``F.embedding_bag(mode="sum", per_sample_weights=w)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+
+    n, d = table.shape
+    b = CTRStream(n, 1_000_000, BULK_BAGS, seq_len=100, seed=1).batch_at(0)
+    ids = torch.from_numpy(b["hist_items"]).cuda()
+    mask = torch.from_numpy(b["hist_mask"]).cuda()
+    ms = min_ms(lambda: ops.embedding_bag(table, ids, mask), reps=10)
+    plain = cuda_ms(lambda: eb.embedding_bag_ref(table, ids, mask), reps=1)
+    got = ops.embedding_bag(table, ids, mask)
+    err = float((got - eb.embedding_bag_ref(table, ids, mask)).abs().max())
+    if not err <= BAG_TOL * (1 + float(got.abs().max())):
+        raise RuntimeError("timing: B10 kernel != plain")
+    w = mask.float()
+    ids64 = ids.long()  # F.embedding_bag is given int64 ids
+    lib = min_ms(lambda: F.embedding_bag(ids64, table, mode="sum",
+                                         per_sample_weights=w), reps=10)
+    unique = int(torch.unique(ids).numel())
+    nbytes = (unique * d * table.element_size() + ids.numel() * 4.0
+              + w.numel() * 4.0 + BULK_BAGS * d * 4.0)
+    bnd, by = bound_ms(nbytes, 0.0)
+    return {"shape": {"table": [n, d], "ids": list(ids.shape)},
+            "unique_rows": unique, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bytes": nbytes, "bound_ms": bnd,
+            "bound_by": by, "err": err}
+
+
 def main() -> int:
     import torch
 
@@ -485,7 +979,21 @@ def main() -> int:
     bm_cases, bm_err, bm_path_launches = check_bitmap(
         dev, rng, wa_rows, wb_rows, csr.n, sent, np, torch)
     del wa_rows, wb_rows, full_a, some_b
+    fl_cases, fl_err, fl_check_launches = check_flash(dev, rng, np, torch)
+    bag_cases, bag_err, bag_check_launches = check_bag(dev, rng, np, torch)
     emit({"phase": "checks", "kernels": [{
+        "name": "flash_attention",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "ok": True, "cases": fl_cases, "launches": fl_check_launches,
+        "max_abs_err": fl_err,
+        "tolerance": f"fp32: atol + rtol * max|plain|, atol = rtol = "
+                     f"{FLASH_TOL['float32']}; bf16/fp16 per element: "
+                     f"ulp * |plain| + {FLASH_ATOL}, ulp = {FLASH_ULP}"}, {
+        "name": "embedding_bag",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "ok": True, "cases": bag_cases, "launches": bag_check_launches,
+        "max_abs_err": bag_err,
+        "tolerance": f"atol + rtol * max|plain|, atol = rtol = {BAG_TOL}"}, {
         "name": "intersect_count",
         "source": "src/repro_torch/kernels/csrc/intersect_count.cu",
         "ok": True, "cases": checked, "launches": check_launches,
@@ -860,18 +1368,33 @@ def main() -> int:
     bm_bound, bm_by = bound_ms(2.0 * words_a.numel() * 4 + 4.0 * BITMAP_PAIRS,
                                3.0 * words_a.numel())
     del words_a, words_b
-    emit({"phase": "timing", "shape": [e_t, w, w],
-          "slabs_per_round": -(-u_glob.size // slab),
-          "valid_prefix_bytes": prefix_bytes, "padded_bytes": 2.0 * e_t * w * 4,
-          "ops": b1_ops, "kernel_ms": [kernel_ms, kernel_ms_again],
-          "count_bsearch_torch_ms": bsearch_ms, "plain_ms": plain_ms,
-          "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
-          "resident_intersect": b3,
-          "bitmap_intersect_count": {
-              "shape": bm_shape, "ms": bm_ms, "plain_ms": bm_plain_ms,
-              "sum_counts": int(got_bm.long().sum()),
-              "bytes": 2.0 * bm_shape[0] * bm_shape[1] * 4 + 4.0 * bm_shape[0],
-              "bound_ms": bm_bound, "bound_by": bm_by}})
+    timing = {"phase": "timing", "shape": [e_t, w, w],
+              "slabs_per_round": -(-u_glob.size // slab),
+              "valid_prefix_bytes": prefix_bytes, "padded_bytes": 2.0 * e_t * w * 4,
+              "ops": b1_ops, "kernel_ms": [kernel_ms, kernel_ms_again],
+              "count_bsearch_torch_ms": bsearch_ms, "plain_ms": plain_ms,
+              "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+              "resident_intersect": b3,
+              "bitmap_intersect_count": {
+                  "shape": bm_shape, "ms": bm_ms, "plain_ms": bm_plain_ms,
+                  "sum_counts": int(got_bm.long().sum()),
+                  "bytes": 2.0 * bm_shape[0] * bm_shape[1] * 4 + 4.0 * bm_shape[0],
+                  "bound_ms": bm_bound, "bound_by": bm_by}}
+
+    # ------------------- serving: the graph phases' device tensors go first
+    del dprob, operands
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_rec, b8_launches = phase_serve_lm(np, torch)
+    emit(lm_rec)
+    din_rec, b10_launches, item_table = phase_serve_din(np, torch)
+    emit(din_rec)
+
+    # ------------------------------------------- timing: B8 and B10 rows
+    fl = time_flash(np, torch)
+    bag = time_bag(item_table, np, torch)
+    del item_table
+    emit({**timing, "flash_attention": fl, "embedding_bag": bag})
 
     # ------------------------------------------------------------ summary
     print(nvidia_smi_line(), flush=True)
@@ -913,7 +1436,27 @@ def main() -> int:
         "launches": bm_path_launches,
         "max_abs_err": bm_err, "tolerance": 0, "shape": bm_shape,
         "ms": bm_ms, "plain_ms": bm_plain_ms, "bound_ms": bm_bound,
-        "bound_by": bm_by, "library_ms": None}],
+        "bound_by": bm_by, "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda", "ok": True,
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:87",
+        "launches": b8_launches,
+        "max_abs_err": fl_err, "shape": fl["global"]["shape"],
+        "ms": fl["global"]["ms"], "plain_ms": fl["global"]["plain_ms"],
+        "bound_ms": fl["global"]["bound_ms"],
+        "bound_by": fl["global"]["bound_by"],
+        "library_ms": fl["global"]["library_ms"],
+        "local_layer": fl["local"]}, {
+        "name": "embedding_bag", "route": "cuda", "ok": True,
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:44",
+        "path": "no model of the reference calls it: its path here is "
+                "bag_fixed on the served DIN batch's history ids",
+        "launches": b10_launches,
+        "max_abs_err": max(bag_err, bag["err"]), "shape": bag["shape"],
+        "ms": bag["ms"], "plain_ms": bag["plain_ms"],
+        "bound_ms": bag["bound_ms"], "bound_by": bag["bound_by"],
+        "library_ms": bag["library_ms"]}],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

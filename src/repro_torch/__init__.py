@@ -5,14 +5,26 @@ The port of the ``repro`` package, slice by slice; module and function
 names follow the reference so a reader finds the counterpart. It imports
 ``torch`` and ``numpy`` only — never ``jax`` and nothing of ``repro``.
 
-Layout so far (the paper's LCC pipeline):
+Layout so far (the paper's LCC pipeline, the streaming path, serving):
   core/      CSR, partitions, intersection, RMA pull schedule, CLaMPI
-             cache simulator, the epoch engine, TriC baseline
+             cache simulator, the epoch engine, TriC baseline, the sharded
+             runtime and repartitioning
+  device/    the device rule (``resolve_device``) and the device-resident
+             hot-row tier
+  streaming/ exact incremental TC/LCC under batched edge updates
   graphs/    R-MAT and power-law generators (seeded numpy)
-  kernels/   hand-written CUDA kernels (``csrc/``), their wrappers and
-             plain torch versions, width bucketing
+  kernels/   hand-written CUDA kernels (``csrc/``: B1 intersect_count, B2
+             bitmap_popcount, B3 resident_intersect, B8 flash_attention,
+             B10 embedding_bag), their wrappers and plain torch versions,
+             width bucketing
+  configs/   the LM / recsys / paper-lcc configs and the ``--arch``
+             registry (GNN ids raise: not ported yet)
+  models/    the dense LM transformer (prefill, decode; B8 on the long
+             prompt path), DIN and embedding bags (B10)
+  data/      the seeded CTR stream
+  train/     step factories (the serving steps so far)
   obs/       span tracer, metric registry, cachescope (host-only)
-  launch/    ``lcc_run`` entry point
+  launch/    ``lcc_run``, ``stream_run`` and ``serve`` entry points
 
 Device rule: every entry point that does device work takes ``device``
 (default ``"cuda"``) and raises when that device is missing; nothing

@@ -9,6 +9,8 @@ torch stand-in.
 from __future__ import annotations
 
 from .bitmap_popcount import bitmap_intersect_count
+from .embedding_bag import embedding_bag
+from .flash_attention import flash_attention_gqa
 from .intersect_count import intersect_count
 
 __all__ = [
@@ -29,6 +31,4 @@ def _not_ported(name: str):
     return stub
 
 
-embedding_bag = _not_ported("embedding_bag")
 segment_sum_sorted = _not_ported("segment_sum_sorted")
-flash_attention_gqa = _not_ported("flash_attention_gqa")

@@ -4,6 +4,8 @@ here; a kernel that is not ported yet has no entry."""
 from __future__ import annotations
 
 from .bitmap_popcount import bitmap_intersect_count_ref
+from .embedding_bag import embedding_bag_ref
+from .flash_attention import flash_attention_ref
 from .intersect_count import intersect_count_ref
 from .resident_intersect import resident_intersect_ref
 
@@ -11,4 +13,6 @@ __all__ = [
     "intersect_count_ref",
     "resident_intersect_ref",
     "bitmap_intersect_count_ref",
+    "embedding_bag_ref",
+    "flash_attention_ref",
 ]

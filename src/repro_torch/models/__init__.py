@@ -1,0 +1,7 @@
+"""Model code of the port: the dense LM transformer (prefill and decode)
+and the recsys models. The MoE FFN and the GNNs are not ported yet.
+
+The package imports none of its modules: ``kernels.flash_attention`` takes
+its plain version from ``models.attention``, and ``models.transformer``
+calls the kernels, so importing the package must not pull in either side.
+"""

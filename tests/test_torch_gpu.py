@@ -123,3 +123,92 @@ def test_bitmap_popcount_kernel_on_card():
     c2 = ops.bitmap_intersect_count(rows_to_bitmap_words(ra, SENT),
                                     rows_to_bitmap_words(rb, SENT))
     assert torch.equal(c1, c2)
+
+
+def _attention_inputs(rng, b, s, t, kh, g, dh, dtype):
+    q = torch.from_numpy(rng.normal(size=(b, s, kh, g, dh)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, t, kh, dh)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(b, t, kh, dh)).astype(np.float32))
+    return (x.to("cuda", dtype) for x in (q, k, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_on_card():
+    """B8 against its plain version: fp32 at 2e-5 (the reference's kernel
+    tolerance; only the summation order differs), bf16/fp16 element by
+    element at one ulp of the output dtype (2^-7 / 2^-10 relative: both
+    round one fp32 result) plus 1e-4 for the fp32 summation noise near 0;
+    causal, windows, softcap, non-causal, G in {1, 2}, dh in {64, 128,
+    256}, S that no tile divides, S != T."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import flash_attention_torch
+
+    rng = np.random.default_rng(6)
+    fa.reset_launches()
+    n = 0
+    cases = [  # (b, s, t, kh, g, dh, causal, window, softcap, dtype)
+        (2, 200, 200, 2, 2, 64, True, 0, 0.0, torch.float32),
+        (1, 300, 300, 2, 2, 128, True, 64, 50.0, torch.float32),
+        (1, 129, 129, 3, 1, 128, False, 0, 0.0, torch.float32),
+        (2, 96, 160, 2, 2, 64, False, 40, 30.0, torch.float32),
+        (1, 65, 65, 2, 2, 256, True, 16, 50.0, torch.float32),
+        (1, 1000, 1000, 4, 2, 128, True, 256, 50.0, torch.bfloat16),
+        (1, 513, 513, 2, 2, 64, True, 0, 0.0, torch.float16),
+    ]
+    for b, s, t, kh, g, dh, causal, window, cap, dt in cases:
+        q, k, v = _attention_inputs(rng, b, s, t, kh, g, dh, dt)
+        kw = dict(scale=dh ** -0.5, causal=causal, window=window, softcap=cap)
+        got = ops.flash_attention_gqa(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_torch(q, k, v, **kw)
+        assert got.dtype == dt and got.shape == q.shape
+        if dt == torch.float32:
+            rtol, atol = 2e-5, 2e-5
+        else:
+            rtol, atol = (2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -10), 1e-4
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        n += 1
+    assert fa.launches() == n
+    q, k, v = _attention_inputs(rng, 1, 64, 64, 2, 2, 48, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_gqa(q, k, v, scale=1.0)
+    assert fa.launches() == n  # a refused call launches nothing
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_on_card():
+    """B10 against its plain version at 2e-3 (the reference's bag
+    tolerance): fp32/bf16/fp16 tables, D = 18 and odd widths (every load
+    width), sum and mean, all-masked bags, B not a multiple of 8, ids out
+    of range (NaN, as in the reference's oracle)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.kernels import embedding_bag as eb
+
+    rng = np.random.default_rng(7)
+    eb.reset_launches()
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for nrows, d, b, l in [(1000, 18, 13, 100), (64, 16, 16, 4),
+                               (300, 7, 5, 33), (50, 130, 9, 3)]:
+            table = torch.from_numpy(rng.normal(size=(nrows, d)).astype(
+                np.float32)).to("cuda", dtype)
+            ids = torch.from_numpy(rng.integers(0, nrows, size=(b, l)).astype(
+                np.int32)).cuda()
+            mask = torch.from_numpy(rng.random((b, l)) < 0.7).cuda()
+            mask[0] = False
+            for mode in ("sum", "mean"):
+                got = ops.embedding_bag(table, ids, mask, mode=mode)
+                torch.cuda.synchronize()
+                want = eb.embedding_bag_ref(table, ids, mask, mode=mode)
+                assert got.dtype == torch.float32 and got.shape == (b, d)
+                torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+                assert not got[0].any()
+                n += 1
+    ids[1, 0] = nrows + 3
+    got = ops.embedding_bag(table, ids, mask)
+    assert torch.isnan(got[1]).all() and not torch.isnan(got[2]).any()
+    assert eb.launches() == n + 1

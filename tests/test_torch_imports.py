@@ -57,10 +57,22 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.kernels._build", "repro_torch.kernels.bitmap_popcount",
     "repro_torch.kernels.bucketing",
     "repro_torch.kernels.delta_intersect",
+    "repro_torch.kernels.embedding_bag", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.intersect_count", "repro_torch.kernels.ops",
     "repro_torch.kernels.point_query", "repro_torch.kernels.ref",
     "repro_torch.kernels.resident_intersect",
-    "repro_torch.launch.lcc_run", "repro_torch.launch.stream_run",
+    "repro_torch.launch.lcc_run", "repro_torch.launch.serve",
+    "repro_torch.launch.stream_run",
+    "repro_torch.configs.registry", "repro_torch.configs.shapes",
+    "repro_torch.configs.gemma2_27b", "repro_torch.configs.qwen25_14b",
+    "repro_torch.configs.stablelm_1_6b", "repro_torch.configs.din",
+    "repro_torch.configs.paper_lcc",
+    "repro_torch.configs.moonshot_v1_16b_a3b",
+    "repro_torch.configs.phi35_moe_42b_a6_6b",
+    "repro_torch.data.recsys",
+    "repro_torch.models.common", "repro_torch.models.attention",
+    "repro_torch.models.transformer", "repro_torch.models.recsys.embedding",
+    "repro_torch.models.recsys.din", "repro_torch.train.train_loop",
     "repro_torch.obs.cachescope", "repro_torch.obs.metrics",
     "repro_torch.obs.trace",
     "repro_torch.streaming", "repro_torch.streaming.coherence",
@@ -100,7 +112,7 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     from repro_torch.kernels.resident_intersect import (
         resident_intersect_counts,
     )
-    from repro_torch.launch import lcc_run, stream_run
+    from repro_torch.launch import lcc_run, serve, stream_run
     from repro_torch.streaming import DynamicCSR, StreamingLCCEngine
 
     if torch.cuda.is_available():
@@ -119,6 +131,8 @@ def test_default_device_is_cuda_and_raises_without_a_card():
                                                 sentinel=9, use_kernel=True),
         lambda: lcc_run.main(["--scale", "6", "--p", "2"]),
         lambda: stream_run.main(["--scale", "6", "--batches", "2"]),
+        lambda: serve.main(["--arch", "stablelm-1.6b", "--smoke"]),
+        lambda: serve.main(["--arch", "din", "--smoke"]),
         lambda: StreamingLCCEngine(g),
         lambda: ResidencyManager(DynamicCSR.from_csr(g), slots=4),
         lambda: ShardedRuntime(DynamicCSR.from_csr(g), 2, device_slots=4),

@@ -125,9 +125,7 @@ def test_cpu_path_launches_no_kernel():
     assert ic.launches() == 0
 
 
-@pytest.mark.parametrize("name", [
-    "embedding_bag", "segment_sum_sorted", "flash_attention_gqa",
-])
+@pytest.mark.parametrize("name", ["segment_sum_sorted"])
 def test_unported_kernels_raise(name):
     with pytest.raises(NotImplementedError, match=f"not ported yet: {name}"):
         getattr(ops, name)()
