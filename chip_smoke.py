@@ -8,15 +8,20 @@ Needs one CUDA device, ``nvcc`` and nothing else; it imports ``torch`` and
 builds every hand-written kernel from the sources in this checkout (one
 ``nvcc`` per source, started together), holds each against its plain torch
 version on the card (integers: bit for bit, tolerance 0; floats at the
-stated tolerances), drives the port's three paths — the paper's LCC
-pipeline, the streaming path with the device tier, and serving
-(gemma2-27b prefill + decode, DIN scoring) — through their public entry
-points, and fails (non-zero exit) if any phase fails. Each phase prints one
+stated tolerances), drives the port's four paths — the paper's LCC
+pipeline, the streaming path with the device tier, serving (gemma2-27b
+prefill + decode, DIN scoring) and GNN training (gin-tu at ogb_products'
+size) — through their public entry points, and fails (non-zero exit) if any
+phase fails. Each phase prints one
 JSON object on a line of its own:
 
   env      versions, device name, ``nvidia-smi`` name and power limit
   build    seconds to build each library, ``-Xptxas -v`` registers / smem
-  checks   kernel vs plain version at the listed shapes: B8
+  checks   kernel vs plain version at the listed shapes: B9
+           (``segment_sum_sorted``: the reference's test shapes, D in {1, 3,
+           64, 100, 128}, E in {0, 1, 777}, a padding tail of id N,
+           negative, unsorted and int64 ids, one segment over 10^6 edges,
+           Zipf segment sizes); B8
            (``flash_attention``: causal, window 0/64/4,096, softcap 0/50,
            non-causal, G 1/2, dh 64/128/256, S that no tile divides, fp32,
            fp16, and gemma2-27b's layer [1, 8192, 16, 2, 128] in bf16); B10
@@ -60,6 +65,19 @@ JSON object on a line of its own:
            (the launcher's mean of 3 batches, and 200 batches timed one by
            one: median, p99, min, max); ``bag_fixed`` on the batch's
            history ids (through B10) held against its plain version
+  train_gnn ``repro_torch.launch.train.main`` on gin-tu, gat-cora and pna
+           (the reference's smoke batch, 20 steps each; B9 4 / 4 / 11 times
+           a step), then gin-tu's published config (5 layers, d_hidden 64)
+           at ogb_products' shape (2,449,029 nodes, 61,859,140 edges, 100
+           features, 47 classes; batch drawn on the card, edges sorted by
+           destination once; the serving tensors are freed first) and
+           gat-cora's at full_graph_sm, wired by the launcher's own
+           ``wire_gnn``: 1 warm-up + 5 timed steps through ``TrainRunner``
+           (ms/step, edges/s,
+           peak memory, B9 launches per step, calls of the step), one
+           profiled step (device split: B9, gathers, the gathers' backward
+           scatters, GEMMs, the rest; idle share), and the same steps on the
+           plain route (B9's plain version): every loss within rel 1e-4
   timing   each kernel at full-size shapes (CUDA events) beside its plain
            version, its bound and, where one exists, one PyTorch call of
            the same function: B1 at the engine's per-round slab, B3 on the
@@ -67,13 +85,17 @@ JSON object on a line of its own:
            packed over [0, 65,536), B8 at gemma2-27b's prefill layer (global
            and local; ``F.scaled_dot_product_attention``, causal for global,
            a boolean causal-window mask for local), B10 at serve_bulk
-           (262,144 x 100 ids over the 10^8-row table; ``F.embedding_bag``)
+           (262,144 x 100 ids over the 10^8-row table; ``F.embedding_bag``),
+           B9 at ogb_products' aggregations, [61,859,140 x 64] and x 100
+           over 2,449,029 sorted segments (``zeros + index_add_``), held
+           element by element against the plain output at both widths
 
 then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``. The launch counts in the summary are read
 from the wrappers' counters, set to 0 just before each path (``entry``
 through ``pairs``; ``stream``; ``stream_routes``; the 8,192-token
-``serve_lm`` run; ``serve_din``) and read just after it; launches made by
+``serve_lm`` run; ``serve_din``; each launcher run and each cell's kernel
+route in ``train_gnn``) and read just after it; launches made by
 ``checks`` and ``timing`` are not in them, except for B2, whose only path is
 its cross-check against B1 (the reference has no other caller of it).
 """
@@ -97,7 +119,7 @@ CACHE_ROWS = 256
 FULL_ROUNDS = 32
 N_PAIRS = 100_000
 LIBRARIES = ("intersect_count", "resident_intersect", "bitmap_popcount",
-             "flash_attention", "embedding_bag")
+             "flash_attention", "embedding_bag", "segment_sum_sorted")
 STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
@@ -146,6 +168,27 @@ FLASH_TOL = {"float32": 2e-5}
 FLASH_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 FLASH_ATOL = 1e-4
 BAG_TOL = 2e-3  # the reference's embedding-bag test tolerance
+# B9 vs its plain version: the reference's segment-sum test tolerance
+# (rtol = atol, element by element): fp32 sums in another order, and
+# atomics whose order changes from run to run
+SEGSUM_TOL = 1e-5
+# the training path: the launcher on the three GNN archs (the reference's
+# smoke batch), then gin-tu's published config at ogb_products' shape and
+# gat-cora's at full_graph_sm, 1 warm-up + 5 timed steps each through
+# TrainRunner, then the same steps on the plain route (B9's plain version)
+TRAIN_ARCHS = ("gin-tu", "gat-cora", "pna")
+TRAIN_LAUNCHER_STEPS = 20
+TRAIN_CELLS = (("gin-tu", "ogb_products"), ("gat-cora", "full_graph_sm"))
+TRAIN_STEPS = 6
+# B9 launches per step reckoned from the code: one per aggregation, plus
+# the graph readout (gin smoke), the softmax denominator (gat), two per
+# segment_mean and one for the degrees (pna); the backward launches none
+B9_PER_STEP = {("gin-tu", "smoke"): 4, ("gat-cora", "smoke"): 4,
+               ("pna", "smoke"): 11, ("gin-tu", "ogb_products"): 5,
+               ("gat-cora", "full_graph_sm"): 4}
+# kernel route vs plain route, each step's loss: relative. The routes
+# differ in B9's fp32 summation order only; 6 Adam steps at lr 1e-3 carry it
+TRAIN_LOSS_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -862,6 +905,351 @@ def time_bag(table, np, torch):
             "bound_by": by, "err": err}
 
 
+def check_segment_sum(dev, rng, np, torch):
+    """B9 vs its plain version, element by element at SEGSUM_TOL: the
+    reference's test shapes, D in {1, 3, 64, 100, 128} (every load width),
+    E in {0, 1, 777}, a padding tail of id N, negative and unsorted ids,
+    int64 ids; one segment over 10^6 edges and Zipf segment sizes with
+    values on a 2^-10 grid (their sums are exact in fp32 in any order, so
+    the plain version's own atomics cannot blur the check). Returns (cases,
+    max_abs_err, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum_sorted as ss
+
+    plan = [(512, 16, 64, "sorted"), (1024, 64, 200, "sorted")]
+    for d in (1, 3, 64, 100, 128):
+        for e in (0, 1, 777):
+            plan.append((e, d, 300, "sorted"))
+    plan += [(777, 64, 50, "padded"), (777, 100, 50, "negative"),
+             (777, 3, 50, "unsorted"), (777, 64, 50, "int64"),
+             (1_000_000, 64, 3, "one_segment"),
+             (2_000_000, 64, 100_000, "zipf")]
+    cases, worst = [], 0.0
+    ss.reset_launches()
+    for e, d, n, kind in plan:
+        if kind == "one_segment":
+            seg = np.ones(e, np.int64)
+        elif kind == "zipf":  # segment sizes ~ Zipf(1.5), sorted ids
+            seg = np.sort((rng.zipf(1.5, e) - 1) % n)
+        else:
+            seg = np.sort(rng.integers(0, n, e))
+        if kind == "padded":
+            seg[-e // 4:] = n
+        elif kind == "negative":
+            seg[: e // 3] = -1 - rng.integers(0, 3, e // 3)
+        elif kind == "unsorted":
+            seg = rng.permutation(seg)
+        seg = seg.astype(np.int64 if kind == "int64" else np.int32)
+        vals = rng.standard_normal((e, d), dtype=np.float32)
+        if kind in ("one_segment", "zipf"):
+            vals = np.round(vals * 1024) / 1024
+        v = torch.from_numpy(vals).to(dev)
+        s = torch.from_numpy(seg).to(dev)
+        got = ops.segment_sum_sorted(v, s, num_segments=n)
+        torch.cuda.synchronize()
+        want = ss.segment_sum_sorted_ref(v, s, num_segments=n)
+        if got.dtype != torch.float32 or got.shape != (n, d):
+            raise RuntimeError(f"B9 output {got.dtype} {tuple(got.shape)}")
+        diff = (got - want).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        over = (float((diff / (SEGSUM_TOL * (1 + want.abs()))).max())
+                if diff.numel() else 0.0)
+        worst = max(worst, err)
+        cases.append({"E": e, "D": d, "N": n, "ids": kind, "err": err,
+                      "err_over_limit": over,
+                      "largest_segment": int(np.bincount(
+                          seg[(seg >= 0) & (seg < n)].astype(np.int64),
+                          minlength=1).max()) if e else 0})
+        if not over <= 1.0:
+            raise RuntimeError(f"B9 {cases[-1]}: kernel != plain")
+        del v, s, got, want, diff
+    return cases, worst, ss.launches()
+
+
+def gnn_cell_batch(arch_id, shape_id, dev, torch):
+    """(cfg, batch on the card) for one (arch, shape) cell: the published
+    config adapted by ``_adapt_cfg`` to the shape, and a batch of
+    ``cell_shapes``' shapes and dtypes drawn on the card from a seeded
+    generator with ``make_smoke_batch``'s structure (uniform src/dst,
+    edge_mask = rand < 0.9, normal features, uniform labels, every label
+    and node unmasked)."""
+    from repro_torch.configs.inputs import _adapt_cfg, cell_shapes
+    from repro_torch.configs.registry import get_arch
+
+    arch = get_arch(arch_id)
+    shape = arch.shapes[shape_id]
+    cfg = _adapt_cfg(arch, arch.config(), shape_id, shape)
+    spec = cell_shapes(arch, arch.config(), shape)
+    n = spec["node_mask"][0][0]
+    e = spec["edge_src"][0][0]
+    gen = torch.Generator(dev).manual_seed(0)
+    if set(spec) != {"edge_src", "edge_dst", "edge_mask", "node_mask",
+                     "node_feat", "labels", "label_mask"}:
+        raise RuntimeError(f"{arch_id} x {shape_id}: inputs {sorted(spec)}")
+    batch = {
+        "edge_src": torch.randint(0, n, (e,), generator=gen, device=dev,
+                                  dtype=torch.int32),
+        "edge_dst": torch.randint(0, n, (e,), generator=gen, device=dev,
+                                  dtype=torch.int32),
+        "edge_mask": torch.rand((e,), generator=gen, device=dev) < 0.9,
+        "node_mask": torch.ones((n,), dtype=torch.bool, device=dev),
+        "node_feat": torch.randn(spec["node_feat"][0], generator=gen,
+                                 device=dev),
+        "labels": torch.randint(0, cfg.n_classes, (n,), generator=gen,
+                                device=dev, dtype=torch.int32),
+        "label_mask": torch.ones((n,), dtype=torch.bool, device=dev),
+    }
+    for k, (sh, dt) in spec.items():
+        if tuple(batch[k].shape) != tuple(sh) or batch[k].dtype != dt:
+            raise RuntimeError(f"{arch_id} x {shape_id}: {k} "
+                               f"{batch[k].dtype} {tuple(batch[k].shape)}")
+    return cfg, batch
+
+
+def split_train_time(rows):
+    """Device ms of one GNN train step by kind, from ``kernel_rows``: B9,
+    the gathers (``x[src]`` and B9's backward ``index_select``), the
+    scatters of the gathers' backward (``index_put_`` with accumulate: its
+    sort and its kernel), the GEMMs and the rest."""
+    kinds = (("segment_sum_sorted", re.compile(r"segment_sum_kernel")),
+             ("gather_backward_scatter", re.compile(
+                 r"indexing_backward|index_put|scatter|indexFunc|index_add"
+                 r"|RadixSort|radix_sort|cub::", re.I)),
+             ("gather", re.compile(r"index_elementwise|gather|indexSelect"
+                                   r"|index_select", re.I)),
+             ("gemm", re.compile(r"gemm|xmma|nvjet|cutlass", re.I)))
+    out = {k: 0.0 for k, _ in kinds}
+    out["other"] = 0.0
+    for r in rows:
+        kind = next((k for k, pat in kinds if pat.search(r["name"])),
+                    "other")
+        out[kind] += r["device_ms"]
+    out["busy"] = sum(r["device_ms"] for r in rows)
+    return out
+
+
+def train_cell(arch_id, shape_id, dev, np, torch):
+    """One (arch, shape) cell through the launcher's own wiring
+    (``launch.train.wire_gnn``: the batch's edges sorted once, the
+    launcher's optimizer and step), ``TrainRunner`` for TRAIN_STEPS steps
+    (the first a warm-up); then one profiled step; then the same steps on
+    the plain route from the same start. Returns (record, B9 launches of
+    the kernel route's steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.fault_tolerance import (
+        StragglerMonitor,
+        TrainRunner,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum_sorted as ss
+    from repro_torch.launch.train import wire_gnn
+
+    t0 = time.perf_counter()
+    cfg, raw = gnn_cell_batch(arch_id, shape_id, dev, torch)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    wire_s = {}
+
+    def run(route):
+        t0 = time.perf_counter()
+        params, optim, step, data_fn = wire_gnn(arch_id, cfg, raw, 0, dev)
+        torch.cuda.synchronize()
+        wire_s[route] = time.perf_counter() - t0
+        dst = data_fn(0)["edge_dst"]
+        if not bool((dst[1:] >= dst[:-1]).all()):
+            raise RuntimeError(f"{arch_id}: edges not sorted by destination")
+        calls = [0]
+
+        def counted(*a):
+            calls[0] += 1
+            return step(*a)
+
+        runner = TrainRunner(step_fn=counted, data_fn=data_fn,
+                             monitor=StragglerMonitor())
+        torch.cuda.reset_peak_memory_stats()
+        ss.reset_launches()
+        params, opt_state, log = runner.run(
+            params, optim.init(params), start_step=0, n_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launches = ss.launches()
+        timed = [m["dt"] * 1e3 for m in log[1:]]
+        med = statistics.median(timed)
+        losses = [m["loss"] for m in log]
+        if calls[0] != TRAIN_STEPS:
+            raise RuntimeError(f"{arch_id} {route}: step_fn called "
+                               f"{calls[0]} times for {TRAIN_STEPS} steps "
+                               "(a retry hid a fault)")
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"{arch_id} {route}: loss {losses}")
+        rec = {"route": route, "steps": TRAIN_STEPS,
+               "step_fn_calls": calls[0], "losses": losses,
+               "first_step_ms": log[0]["dt"] * 1e3,
+               "ms_per_step_median": med, "ms_per_step": timed,
+               "edges_per_s": n_edges / med * 1e3,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "segment_sum_sorted_launches": launches,
+               "straggler_flags": len(runner.monitor.flagged)}
+        return rec, params, opt_state, step, data_fn(0)
+
+    n_nodes, n_edges = raw["node_feat"].shape[0], raw["edge_dst"].shape[0]
+    kernel, params, opt_state, step, batch = run("kernel")
+    want = B9_PER_STEP[(arch_id, shape_id)] * TRAIN_STEPS
+    if kernel["segment_sum_sorted_launches"] != want:
+        raise RuntimeError(f"{arch_id} x {shape_id}: B9 launched "
+                           f"{kernel['segment_sum_sorted_launches']} times "
+                           f"in {TRAIN_STEPS} steps, expected {want}")
+    rec = {"arch": arch_id, "shape": shape_id,
+           "config": {k: v for k, v in dataclasses.asdict(cfg).items()
+                      if k != "dtype"},
+           "nodes": n_nodes, "edges": n_edges,
+           "unmasked_edges": int(batch["edge_mask"].sum()),
+           "batch_gen_s": gen_s, "wire_s": wire_s,
+           "b9_launches_per_step": kernel["segment_sum_sorted_launches"]
+           / TRAIN_STEPS, "kernel_route": kernel}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof, torch)
+    split = split_train_time(rows)
+    if split["busy"] > window_ms:
+        raise RuntimeError(f"{arch_id}: device busy time exceeds the window")
+    rec["profiled_step"] = {"window_ms": window_ms, "device_ms": split,
+                            "idle_share": 1.0 - split["busy"] / window_ms,
+                            "top_device_kernels": rows[:12]}
+    del prof
+    del params, opt_state, step, batch
+    real = ops.segment_sum_sorted
+    ops.segment_sum_sorted = ss.segment_sum_sorted_ref  # the plain route
+    try:
+        plain, p_params, p_state, _, _ = run("plain")
+    finally:
+        ops.segment_sum_sorted = real
+    del p_params, p_state
+    if plain["segment_sum_sorted_launches"] != 0:
+        raise RuntimeError(f"{arch_id}: the plain route launched B9")
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(kernel["losses"], plain["losses"])]
+    rec["plain_route"] = plain
+    rec["kernel_vs_plain_route"] = {"loss_rel_err": rel,
+                                    "tolerance": TRAIN_LOSS_RTOL}
+    if not max(rel) <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"{arch_id} x {shape_id}: kernel route != plain "
+                           f"route {rel}")
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, kernel["segment_sum_sorted_launches"]
+
+
+def phase_train_gnn(dev, np, torch):
+    """The training path: ``repro_torch.launch.train.main`` on the three GNN
+    archs (the reference's smoke batch, TRAIN_LAUNCHER_STEPS steps), then
+    the TRAIN_CELLS at full width (``train_cell``). Returns (phase record,
+    B9 launches on the path)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import segment_sum_sorted as ss
+    from repro_torch.launch import train
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise RuntimeError("train_gnn: fp32 GEMMs must not run in TF32")
+    rec = {"phase": "train_gnn",
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "launcher": {}, "cells": []}
+    launches = 0
+    for arch in TRAIN_ARCHS:
+        argv = ["--arch", arch, "--steps", str(TRAIN_LAUNCHER_STEPS)]
+        out, run = io.StringIO(), {}
+        ss.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train.main(argv, result=run)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = ss.launches()
+        print(out.getvalue(), end="", flush=True)
+        want = B9_PER_STEP[(arch, "smoke")] * TRAIN_LAUNCHER_STEPS
+        losses = [m["loss"] for m in run["log"]]
+        if rc != 0 or n != want or not all(np.isfinite(losses)):
+            raise RuntimeError(f"train.main {argv}: rc {rc}, B9 launched "
+                               f"{n} times (expected {want}), losses "
+                               f"{losses}")
+        rec["launcher"][arch] = {
+            "argv": " ".join(argv), "line": out.getvalue().strip(),
+            "seconds": seconds, "segment_sum_sorted_launches": n,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "ms_per_step_median": statistics.median(
+                m["dt"] for m in run["log"][1:]) * 1e3}
+        launches += n
+    for arch, shape in TRAIN_CELLS:
+        cell, n = train_cell(arch, shape, dev, np, torch)
+        rec["cells"].append(cell)
+        launches += n
+    return rec, launches
+
+
+def time_segment_sum(dev, np, torch):
+    """B9 at gin-tu x ogb_products' aggregation shapes: [61,859,140 x 64]
+    (layers 2-5) and [61,859,140 x 100] (layer 1), ids sorted over
+    2,449,029 segments: kernel, plain version (D = 64), bound (values and
+    ids read once, out written once) and ``zeros(N, D).index_add_`` as the
+    library call. Each timed call includes its output's zeroing. At both
+    widths the kernel's output is held element by element at SEGSUM_TOL
+    against the plain one: at D = 64 the plain version's, at D = 100 the
+    library call's (every id is in range, so it is the same function, and
+    no masked copy of the 24.7 GB values is needed)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum_sorted as ss
+
+    shape = get_arch("gin-tu").shapes["ogb_products"]
+    n, e = shape.n_nodes, shape.n_edges
+    gen = torch.Generator(dev).manual_seed(1)
+    seg = torch.sort(torch.randint(0, n, (e,), generator=gen, device=dev,
+                                   dtype=torch.int32)).values
+    out = {}
+    for d in (64, 100):
+        vals = torch.randn((e, d), generator=gen, device=dev)
+        ms = min_ms(lambda: ops.segment_sum_sorted(vals, seg,
+                                                   num_segments=n), reps=5)
+        lib = min_ms(lambda: torch.zeros((n, d), device=dev).index_add_(
+            0, seg, vals), reps=5)
+        nbytes = e * d * 4.0 + e * 4.0 + n * d * 4.0
+        bnd, by = bound_ms(nbytes, e * d * 1.0)
+        row = {"shape": {"values": [e, d], "segments": n}, "ms": ms,
+               "library_ms": lib, "bytes": nbytes, "bound_ms": bnd,
+               "bound_by": by}
+        if d == 64:
+            row["plain_ms"] = cuda_ms(
+                lambda: ss.segment_sum_sorted_ref(vals, seg, num_segments=n),
+                reps=1)
+            want = ss.segment_sum_sorted_ref(vals, seg, num_segments=n)
+            row["err_against"] = "segment_sum_sorted_ref"
+        else:
+            want = torch.zeros((n, d), device=dev).index_add_(0, seg, vals)
+            row["err_against"] = "zeros + index_add_"
+        got = ops.segment_sum_sorted(vals, seg, num_segments=n)
+        diff = (got - want).abs()
+        row["err"] = float(diff.max())
+        row["err_over_limit"] = float(
+            (diff / (SEGSUM_TOL * (1 + want.abs()))).max())
+        if not row["err_over_limit"] <= 1.0:
+            raise RuntimeError(f"timing: B9 kernel != plain at D = {d} "
+                               f"({row['err_over_limit']})")
+        del got, want, diff
+        out[f"D{d}"] = row
+        del vals
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -981,7 +1369,15 @@ def main() -> int:
     del wa_rows, wb_rows, full_a, some_b
     fl_cases, fl_err, fl_check_launches = check_flash(dev, rng, np, torch)
     bag_cases, bag_err, bag_check_launches = check_bag(dev, rng, np, torch)
+    ss_cases, ss_err, ss_check_launches = check_segment_sum(dev, rng, np,
+                                                            torch)
     emit({"phase": "checks", "kernels": [{
+        "name": "segment_sum_sorted",
+        "source": "src/repro_torch/kernels/csrc/segment_sum_sorted.cu",
+        "ok": True, "cases": ss_cases, "launches": ss_check_launches,
+        "max_abs_err": ss_err,
+        "tolerance": f"per element: atol + rtol * |plain|, atol = rtol = "
+                     f"{SEGSUM_TOL}"}, {
         "name": "flash_attention",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "ok": True, "cases": fl_cases, "launches": fl_check_launches,
@@ -1393,8 +1789,18 @@ def main() -> int:
     # ------------------------------------------- timing: B8 and B10 rows
     fl = time_flash(np, torch)
     bag = time_bag(item_table, np, torch)
+
+    # ---------- training: the serving tensors go first; counters to 0 in it
     del item_table
-    emit({**timing, "flash_attention": fl, "embedding_bag": bag})
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rec, b9_launches = phase_train_gnn(dev, np, torch)
+    emit(train_rec)
+
+    # ---------------------------------------------------- timing: B9 rows
+    segsum = time_segment_sum(dev, np, torch)
+    emit({**timing, "flash_attention": fl, "embedding_bag": bag,
+          "segment_sum_sorted": segsum})
 
     # ------------------------------------------------------------ summary
     print(nvidia_smi_line(), flush=True)
@@ -1456,7 +1862,24 @@ def main() -> int:
         "max_abs_err": max(bag_err, bag["err"]), "shape": bag["shape"],
         "ms": bag["ms"], "plain_ms": bag["plain_ms"],
         "bound_ms": bag["bound_ms"], "bound_by": bag["bound_by"],
-        "library_ms": bag["library_ms"]}],
+        "library_ms": bag["library_ms"]}, {
+        "name": "segment_sum_sorted", "route": "cuda", "ok": True,
+        "source": "src/repro_torch/kernels/csrc/segment_sum_sorted.cu",
+        "replaces": "src/repro/kernels/segment_sum_sorted.py:47",
+        "launches": b9_launches,
+        "launches_launcher": {a: r["segment_sum_sorted_launches"]
+                              for a, r in train_rec["launcher"].items()},
+        "launches_cells": {f"{c['arch']} x {c['shape']}":
+                           c["kernel_route"]["segment_sum_sorted_launches"]
+                           for c in train_rec["cells"]},
+        "max_abs_err": max(ss_err, segsum["D64"]["err"],
+                           segsum["D100"]["err"]),
+        "shape": segsum["D64"]["shape"], "ms": segsum["D64"]["ms"],
+        "plain_ms": segsum["D64"]["plain_ms"],
+        "bound_ms": segsum["D64"]["bound_ms"],
+        "bound_by": segsum["D64"]["bound_by"],
+        "library_ms": segsum["D64"]["library_ms"],
+        "layer1_D100": segsum["D100"]}],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

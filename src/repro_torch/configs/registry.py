@@ -1,6 +1,6 @@
 """Architecture registry: --arch <id> resolution for the port's launchers
-and tests. The GNN architectures of the reference are known by id but not
-ported yet: ``get_arch`` raises ``NotImplementedError`` for them."""
+and tests. MACE is known by id but not ported yet: ``get_arch`` raises
+``NotImplementedError`` for it."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,14 +8,17 @@ from typing import Any, Callable, Dict, Tuple
 
 from . import (
     din,
+    gat_cora,
     gemma2_27b,
+    gin_tu,
     moonshot_v1_16b_a3b,
     paper_lcc,
     phi35_moe_42b_a6_6b,
+    pna,
     qwen25_14b,
     stablelm_1_6b,
 )
-from .shapes import LM_SHAPES, RECSYS_SHAPES
+from .shapes import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES
 
 __all__ = ["ArchEntry", "ARCHS", "NOT_PORTED", "get_arch", "shape_table"]
 
@@ -25,12 +28,15 @@ _MODULES = [
     stablelm_1_6b,
     gemma2_27b,
     qwen25_14b,
+    pna,
+    gin_tu,
+    gat_cora,
     din,
     paper_lcc,
 ]
 
-# ids of the reference's registry whose family is not ported yet
-NOT_PORTED = {"mace": "gnn", "pna": "gnn", "gin-tu": "gnn", "gat-cora": "gnn"}
+# ids of the reference's registry not ported yet, and their family
+NOT_PORTED = {"mace": "gnn"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +55,7 @@ class ArchEntry:
 def shape_table(family: str):
     return {
         "lm": LM_SHAPES,
+        "gnn": GNN_SHAPES,
         "recsys": RECSYS_SHAPES,
         "graph-analytics": {},
     }[family]

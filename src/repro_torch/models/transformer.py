@@ -328,7 +328,7 @@ def _cache_len(cfg: TransformerConfig, kind: str, max_len: int) -> int:
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                  device="cpu"):
+                  device):
     """Empty caches: k/v zeros ``[n_blocks, B, t, K, dh]``, pos -1."""
     cache = {}
     for i, kind in enumerate(cfg.pattern):

@@ -1,2 +1,3 @@
-"""Step factories of the port (the serving steps so far)."""
+"""Training and serving steps of the port: step factories, AdamW and
+checkpoints."""
 from . import train_loop  # noqa: F401

@@ -212,3 +212,53 @@ def test_embedding_bag_kernel_on_card():
     got = ops.embedding_bag(table, ids, mask)
     assert torch.isnan(got[1]).all() and not torch.isnan(got[2]).any()
     assert eb.launches() == n + 1
+
+
+@pytest.mark.gpu
+def test_segment_sum_sorted_kernel_on_card():
+    """B9 against its plain version at 1e-5 (the reference's kernel
+    tolerance; fp32 sums whose order the atomics change): every load width
+    (D = 1, 3, 64, 100, 128), E in {0, 1, 777}, a padding tail of id N,
+    negative and unsorted ids, int64 ids, trailing dims, segments over
+    many runs (values on a 2^-10 grid there, so that every order of the
+    sum is exact and the plain version's own atomics cannot blur the
+    check); float64 values raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.kernels import segment_sum_sorted as ss
+
+    rng = np.random.default_rng(8)
+    ss.reset_launches()
+    n_calls = 0
+    for e, d, n, kind in [(512, 16, 64, "sorted"), (1024, 64, 200, "sorted"),
+                          (777, 1, 50, "padded"), (777, 3, 50, "negative"),
+                          (777, 100, 50, "unsorted"), (1, 128, 4, "sorted"),
+                          (0, 64, 10, "sorted"), (100_000, 64, 3, "sorted")]:
+        seg = np.sort(rng.integers(0, n, size=e))
+        if kind == "padded":
+            seg[-e // 4:] = n
+        elif kind == "negative":
+            seg[: e // 3] = -1
+        elif kind == "unsorted":
+            seg = rng.permutation(seg)
+        vals = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32))
+        if e > 1000:
+            vals = torch.round(vals * 1024) / 1024
+        for ids in (seg.astype(np.int32), seg.astype(np.int64)):
+            v, s = vals.cuda(), torch.from_numpy(ids).cuda()
+            got = ops.segment_sum_sorted(v, s, num_segments=n)
+            torch.cuda.synchronize()
+            want = ss.segment_sum_sorted_ref(v, s, num_segments=n)
+            assert got.dtype == torch.float32 and got.shape == (n, d)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            n_calls += e > 0
+    v3 = torch.randn(300, 8, 8, device="cuda")
+    s3 = torch.sort(torch.randint(0, 20, (300,), device="cuda")).values
+    torch.testing.assert_close(
+        ops.segment_sum_sorted(v3, s3, num_segments=20),
+        ss.segment_sum_sorted_ref(v3, s3, num_segments=20),
+        rtol=1e-5, atol=1e-5)
+    assert ss.launches() == n_calls + 1
+    with pytest.raises(TypeError, match="float32"):
+        ops.segment_sum_sorted(v3.double(), s3, num_segments=20)
+    assert ss.launches() == n_calls + 1  # a refused call launches nothing

@@ -73,6 +73,14 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.models.common", "repro_torch.models.attention",
     "repro_torch.models.transformer", "repro_torch.models.recsys.embedding",
     "repro_torch.models.recsys.din", "repro_torch.train.train_loop",
+    "repro_torch.kernels.segment_sum_sorted", "repro_torch.tree",
+    "repro_torch.configs.inputs", "repro_torch.configs.gin_tu",
+    "repro_torch.configs.gat_cora", "repro_torch.configs.pna",
+    "repro_torch.models.gnn", "repro_torch.models.gnn.common",
+    "repro_torch.models.gnn.gin", "repro_torch.models.gnn.gat",
+    "repro_torch.models.gnn.pna", "repro_torch.train.optimizer",
+    "repro_torch.train.checkpoint", "repro_torch.distributed",
+    "repro_torch.distributed.fault_tolerance", "repro_torch.launch.train",
     "repro_torch.obs.cachescope", "repro_torch.obs.metrics",
     "repro_torch.obs.trace",
     "repro_torch.streaming", "repro_torch.streaming.coherence",
@@ -112,7 +120,7 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     from repro_torch.kernels.resident_intersect import (
         resident_intersect_counts,
     )
-    from repro_torch.launch import lcc_run, serve, stream_run
+    from repro_torch.launch import lcc_run, serve, stream_run, train
     from repro_torch.streaming import DynamicCSR, StreamingLCCEngine
 
     if torch.cuda.is_available():
@@ -133,6 +141,7 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         lambda: stream_run.main(["--scale", "6", "--batches", "2"]),
         lambda: serve.main(["--arch", "stablelm-1.6b", "--smoke"]),
         lambda: serve.main(["--arch", "din", "--smoke"]),
+        lambda: train.main(["--arch", "gin-tu", "--steps", "1"]),
         lambda: StreamingLCCEngine(g),
         lambda: ResidencyManager(DynamicCSR.from_csr(g), slots=4),
         lambda: ShardedRuntime(DynamicCSR.from_csr(g), 2, device_slots=4),

@@ -125,12 +125,6 @@ def test_cpu_path_launches_no_kernel():
     assert ic.launches() == 0
 
 
-@pytest.mark.parametrize("name", ["segment_sum_sorted"])
-def test_unported_kernels_raise(name):
-    with pytest.raises(NotImplementedError, match=f"not ported yet: {name}"):
-        getattr(ops, name)()
-
-
 # --------------------------------------------------------------------------
 # bitmap_intersect_count (B2) vs the Pallas kernel (interpret mode)
 # --------------------------------------------------------------------------
