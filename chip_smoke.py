@@ -16,15 +16,18 @@ phase fails. Each phase prints one
 JSON object on a line of its own:
 
   env      versions, device name, ``nvidia-smi`` name and power limit
-  build    seconds to build each library, ``-Xptxas -v`` registers / smem
+  build    seconds to build each library, ``-Xptxas -v`` registers / smem,
+           the HGMMA (wgmma) instructions in the tensor-core B8's SASS
   checks   kernel vs plain version at the listed shapes: B9
            (``segment_sum_sorted``: the reference's test shapes, D in {1, 3,
            64, 100, 128}, E in {0, 1, 777}, a padding tail of id N,
            negative, unsorted and int64 ids, one segment over 10^6 edges,
            Zipf segment sizes); B8
-           (``flash_attention``: causal, window 0/64/4,096, softcap 0/50,
-           non-causal, G 1/2, dh 64/128/256, S that no tile divides, fp32,
-           fp16, and gemma2-27b's layer [1, 8192, 16, 2, 128] in bf16); B10
+           (``flash_attention``, both kernels: causal, window 0/64/4,096,
+           softcap 0/50, non-causal, G 1/2, dh 64/128, S that no tile
+           divides, in fp32 (the FMA kernel) and in bf16 (the wgmma
+           kernel); fp16, dh 256, S != T, and gemma2-27b's layer [1, 8192,
+           16, 2, 128] in bf16; each case asserts which kernel ran); B10
            (``embedding_bag``: the reference's test shapes, D = 18 / L =
            100, fp32/bf16/fp16 tables, sum and mean, an all-masked bag,
            B = 333); B1 (``intersect_count``); B3 (``resident_intersect``,
@@ -53,7 +56,8 @@ JSON object on a line of its own:
            and depth (46 layers, ~55 GB of bf16 weights; the graph phases'
            device tensors are freed first): the launcher's default 32-token
            prompt (dense attention, 0 B8 launches), then a prompt of 8,192
-           tokens, batch 1, 16 greedy tokens (46 B8 launches); prefill ms,
+           tokens, batch 1, 16 greedy tokens (46 B8 launches, all of the
+           wgmma kernel); prefill ms,
            decode ms/token, tokens/s, peak memory; the last-token logits
            held against the plain route (B8's plain version) on the same
            weights; a second prefill, and a profiled one for the device
@@ -83,8 +87,12 @@ JSON object on a line of its own:
            the same function: B1 at the engine's per-round slab, B3 on the
            4,096 top-degree rows of the S16 graph, B2 on 65,536 edges
            packed over [0, 65,536), B8 at gemma2-27b's prefill layer (global
-           and local; ``F.scaled_dot_product_attention``, causal for global,
-           a boolean causal-window mask for local), B10 at serve_bulk
+           and local, both kernels, the special-function count beside the
+           bound; the global layer at softcap 0 too, in both row layouts of
+           the wgmma kernel, and for 2 s back to back with the card's clock
+           and power sampled; ``F.scaled_dot_product_attention``,
+           causal for global, a boolean causal-window mask for local), B10
+           at serve_bulk
            (262,144 x 100 ids over the 10^8-row table; ``F.embedding_bag``),
            B9 at ogb_products' aggregations, [61,859,140 x 64] and x 100
            over 2,449,029 sorted segments (``zeros + index_add_``), held
@@ -119,7 +127,8 @@ CACHE_ROWS = 256
 FULL_ROUNDS = 32
 N_PAIRS = 100_000
 LIBRARIES = ("intersect_count", "resident_intersect", "bitmap_popcount",
-             "flash_attention", "embedding_bag", "segment_sum_sorted")
+             "flash_attention", "flash_attention_wgmma", "embedding_bag",
+             "segment_sum_sorted")
 STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
@@ -139,6 +148,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # compares too (an upper bound of it, so the bound stays a lower bound)
 OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, the same sheet
+# special-function units (exp2, rcp): 16 results a clock per SM (NVIDIA's
+# arithmetic throughput table, compute capability 9.0) x 132 SMs x 1,980
+# MHz (the card's maximum SM clock, nvidia-smi clocks.max.sm)
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # the serving path: gemma2-27b at full width and depth, a prompt of the
 # reference's flash cutoff (8,192; its shape prefill_32k is 32,768 x 32),
 # batch 1, 16 greedy tokens; then the launcher's defaults (dense attention)
@@ -221,6 +234,45 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def sustained(fn, torch, seconds=2.0):
+    """``fn`` back to back for ``seconds``: mean ms a call (CUDA events),
+    and the SM clock (MHz) and board power (W) that ``nvidia-smi`` samples
+    every 200 ms meanwhile, as [min, max]."""
+    fn()
+    torch.cuda.synchronize()
+    mon = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        calls, t0 = 0, time.perf_counter()
+        start.record()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            calls += 20
+            torch.cuda.synchronize()
+        stop.record()
+        torch.cuda.synchronize()
+    finally:
+        mon.terminate()
+        text = mon.communicate(timeout=30)[0]
+    samples = []
+    for line in text.splitlines():
+        try:
+            clock, watt = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        samples.append((clock, watt))
+    clocks = [c for c, _ in samples] or [float("nan")]
+    watts = [w for _, w in samples] or [float("nan")]
+    return {"ms": start.elapsed_time(stop) / calls, "calls": calls,
+            "sm_clock_mhz": [min(clocks), max(clocks)],
+            "power_w": [min(watts), max(watts)], "samples": len(samples)}
 
 
 def pad_sorted(rng, e, w, sentinel, np):
@@ -488,39 +540,60 @@ def attention_work(s, t, kh, g, dh, causal, window, itemsize):
 def check_flash(dev, rng, np, torch):
     """B8 vs its plain version: (causal, window in {0, 64, 4096}, softcap
     in {0, 50}) and non-causal, x G in {1, 2} x dh in {64, 128}, at S that
-    no tile divides (300, and 4,500 for the 4,096 window), fp32; fp16 and
-    dh 256; the full gemma2-27b layer shape [1, 8192, 16, 2, 128] in bf16,
-    global and local. Returns (cases, max_abs_err, launches)."""
+    no tile divides (300, and 4,500 for the 4,096 window), in fp32 (the FMA
+    kernel) and in bf16 (the wgmma kernel); fp16, dh 256, S != T, scores
+    past the softcap's series, rows TMA cannot read in place; the full
+    gemma2-27b layer shape [1, 8192, 16, 2, 128] in bf16, global and local.
+    Each case asserts that the kernel ``variant`` names ran: wgmma for
+    bf16/fp16 at dh 64 and 128, fma for fp32 and dh 256. Returns (cases,
+    max_abs_err, launches by variant)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.attention import flash_attention_torch
 
-    def inputs(b, s, kh, g, dh, dtype):
-        shapes = ((b, s, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))
+    def inputs(b, s, t, kh, g, dh, dtype, pad):
+        """q, k, v; with pad > 0 views of the first dh of dh + pad columns
+        (rows 2 (dh + pad) bytes apart: the wgmma wrapper copies them)."""
+        shapes = ((b, s, kh, g, dh + pad), (b, t, kh, dh + pad),
+                  (b, t, kh, dh + pad))
         return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
-                .to(dev, dtype) for sh in shapes]
+                .to(dev, dtype)[..., :dh] for sh in shapes]
 
     cases, worst = [], 0.0
     plan = []
-    for causal, window, cap in ((True, 0, 0.0), (True, 0, 50.0),
-                                (True, 64, 0.0), (True, 64, 50.0),
-                                (True, 4096, 0.0), (True, 4096, 50.0),
-                                (False, 0, 0.0)):
-        for g in (1, 2):
-            for dh in (64, 128):
-                s = 4500 if window == 4096 else 300
-                plan.append((1, s, 2, g, dh, causal, window, cap,
-                             torch.float32))
-    plan += [(2, 333, 3, 2, 64, True, 100, 30.0, torch.float16),
-             (1, 257, 2, 2, 256, True, 64, 50.0, torch.float32),
-             (1, 8192, 16, 2, 128, True, 0, 50.0, torch.bfloat16),
-             (1, 8192, 16, 2, 128, True, 4096, 50.0, torch.bfloat16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, window, cap in ((True, 0, 0.0), (True, 0, 50.0),
+                                    (True, 64, 0.0), (True, 64, 50.0),
+                                    (True, 4096, 0.0), (True, 4096, 50.0),
+                                    (False, 0, 0.0)):
+            for g in (1, 2):
+                for dh in (64, 128):
+                    s = 4500 if window == 4096 else 300
+                    plan.append((1, s, s, 2, g, dh, causal, window, cap,
+                                 dtype))
+    plan += [(2, 333, 333, 3, 2, 64, True, 100, 30.0, torch.float16),
+             (1, 257, 257, 2, 2, 256, True, 64, 50.0, torch.float32),
+             (1, 257, 257, 2, 2, 256, True, 64, 50.0, torch.bfloat16),
+             (1, 200, 350, 2, 2, 128, False, 0, 50.0, torch.bfloat16),
+             (1, 8192, 8192, 16, 2, 128, True, 0, 50.0, torch.bfloat16),
+             (1, 8192, 8192, 16, 2, 128, True, 4096, 50.0, torch.bfloat16)]
+    plan = [case + (case[5] ** -0.5, 0) for case in plan]  # scale, pad
+    # scores of std ~11 against softcap 5 (the tanh's ex2 + rcp path, not
+    # its series), and rows whose stride and start TMA cannot take
+    plan += [(1, 300, 300, 2, 2, 128, True, 64, 5.0, torch.bfloat16, 1.0, 0),
+             (1, 300, 300, 2, 1, 64, True, 0, 50.0, torch.bfloat16, 0.125,
+              4)]
     fa.reset_launches()
-    for b, s, kh, g, dh, causal, window, cap, dtype in plan:
-        q, k, v = inputs(b, s, kh, g, dh, dtype)
-        kw = dict(scale=dh ** -0.5, causal=causal, window=window, softcap=cap)
+    for b, s, t, kh, g, dh, causal, window, cap, dtype, scale, pad in plan:
+        q, k, v = inputs(b, s, t, kh, g, dh, dtype, pad)
+        kw = dict(scale=scale, causal=causal, window=window, softcap=cap)
+        before = fa.launches_by_variant()
         got = ops.flash_attention_gqa(q, k, v, **kw)
         torch.cuda.synchronize()
+        after = fa.launches_by_variant()
+        ran = [name for name in after if after[name] != before[name]]
+        want_kind = ("wgmma" if dtype != torch.float32 and dh in (64, 128)
+                     else "fma")
         want = flash_attention_torch(q, k, v, **kw)
         if got.dtype != dtype or got.shape != q.shape:
             raise RuntimeError(f"B8 output {got.dtype} {tuple(got.shape)}")
@@ -534,13 +607,17 @@ def check_flash(dev, rng, np, torch):
         else:
             over = err / (FLASH_TOL[name] * (1 + float(want.abs().max())))
         worst = max(worst, err)
-        cases.append({"shape": [b, s, kh, g, dh], "causal": causal,
+        cases.append({"shape": [b, s, kh, g, dh], "T": t, "causal": causal,
                       "window": window, "softcap": cap, "dtype": name,
+                      "scale": scale, "padded_rows": pad, "variant": ran,
                       "err": err, "err_over_limit": over})
+        if ran != [want_kind]:
+            raise RuntimeError(f"B8 {cases[-1]}: expected the {want_kind} "
+                               f"kernel")
         if not over <= 1.0:
             raise RuntimeError(f"B8 {cases[-1]}: kernel != plain")
         del q, k, v, got, want, diff
-    return cases, worst, fa.launches()
+    return cases, worst, fa.launches_by_variant()
 
 
 def check_bag(dev, rng, np, torch):
@@ -586,7 +663,7 @@ def split_device_time(rows):
     rest, from ``kernel_rows``."""
     gemm = re.compile(r"gemm|xmma|nvjet|cutlass", re.I)
     b8 = sum(r["device_ms"] for r in rows
-             if "flash_attention_kernel" in r["name"])
+             if re.search(r"flash_attention(_wgmma)?_kernel", r["name"]))
     mm = sum(r["device_ms"] for r in rows
              if gemm.search(r["name"]) and "flash_attention" not in r["name"])
     busy = sum(r["device_ms"] for r in rows)
@@ -653,6 +730,11 @@ def phase_serve_lm(np, torch):
         raise RuntimeError(f"serve_lm: B8 launched {b8_launches} times, "
                            f"expected one per layer ({cfg.n_layers})")
     rec["flash_attention_launches"] = b8_launches
+    by_variant = fa.launches_by_variant()
+    if by_variant != {"wgmma": cfg.n_layers, "fma": 0}:
+        raise RuntimeError(f"serve_lm: B8 launches {by_variant}, expected "
+                           f"all {cfg.n_layers} of the wgmma kernel")
+    rec["flash_attention_launches_by_variant"] = by_variant
     params, prompts = run["params"], run["prompts"]
     max_len = prompts.shape[1] + rec["tokens"]
     kernel_logits = run["prefill_logits"].float()
@@ -819,41 +901,71 @@ def din_steady(run, din, tl, torch):
 
 
 def time_flash(np, torch):
-    """B8 at gemma2-27b's prefill layer shape, bf16: kernel, plain version,
-    bound, and ``F.scaled_dot_product_attention`` with softcap 0 (no single
-    call has it) as the library yardstick: causal with GQA for the global
-    layer; for the local layer the causal window as a boolean mask, K/V
-    repeated to the query heads beforehand (outside the clock)."""
+    """B8 at gemma2-27b's prefill layer shape, bf16, softcap 50: the wgmma
+    kernel (the main path's), the FMA kernel at the same shape, the plain
+    version, the bound and the special-function count beside it (one exp2
+    a live score; three if the softcap's tanh took the ex2 + rcp path); the
+    wgmma kernel in both row layouts (query groups paired in a block, as
+    dispatched, and 128 positions of one head), and for two seconds back
+    to back with the card's clock and power sampled. Then the library yardstick
+    ``F.scaled_dot_product_attention``, which has no softcap, beside the
+    wgmma kernel at softcap 0: causal with GQA for the global layer; for
+    the local layer the causal window as a boolean mask, K/V repeated to the
+    query heads beforehand (outside the clock)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.attention import flash_attention_torch
 
     s, kh, g, dh = 8192, 16, 2, 128
+    scale = 144 ** -0.5  # gemma2-27b's query scale
     gen = torch.Generator("cuda").manual_seed(0)
     q = torch.randn((1, s, kh, g, dh), generator=gen, device="cuda").bfloat16()
     k = torch.randn((1, s, kh, dh), generator=gen, device="cuda").bfloat16()
     v = torch.randn((1, s, kh, dh), generator=gen, device="cuda").bfloat16()
     out = {}
     for layer, window in (("global", 0), ("local", 4096)):
-        kw = dict(scale=144 ** -0.5, causal=True, window=window, softcap=50.0)
+        kw = dict(scale=scale, causal=True, window=window, softcap=50.0)
         ms = min_ms(lambda: ops.flash_attention_gqa(q, k, v, **kw), reps=5,
                     warmup=1)
+        fma_ms = min_ms(lambda: fa._launch("fma", q, k, v, torch.empty_like(q),
+                                           last=1, **kw), reps=2, warmup=1)
         plain = cuda_ms(lambda: flash_attention_torch(q, k, v, **kw),
                         reps=1, warmup=1)
         flops, nbytes = attention_work(s, s, kh, g, dh, True, window, 2)
+        pairs = flops / (4 * dh)
         bnd, by = bound_ms(nbytes, 0.0)
         f_ms = flops / BF16_FLOPS_PER_S * 1e3
         if f_ms > bnd:
             bnd, by = f_ms, "operations"
         out[layer] = {"shape": [1, s, kh, g, dh], "window": window,
-                      "softcap": 50.0, "ms": ms, "plain_ms": plain,
-                      "flop": flops, "bytes": nbytes, "bound_ms": bnd,
-                      "bound_by": by, "tflops": flops / ms / 1e9}
+                      "softcap": 50.0, "ms": ms, "fma_ms": fma_ms,
+                      "plain_ms": plain, "flop": flops, "bytes": nbytes,
+                      "bound_ms": bnd, "bound_by": by,
+                      "share_of_bound": bnd / ms,
+                      "tflops": flops / ms / 1e9,
+                      "tflops_executed": 1.5 * flops / ms / 1e9,  # hi + lo P V
+                      "sfu_ops": pairs,
+                      "sfu_ms": pairs / SFU_OPS_PER_S * 1e3,
+                      "sfu_ops_tanh_on_sfu": 3 * pairs,
+                      "sfu_ms_tanh_on_sfu": 3 * pairs / SFU_OPS_PER_S * 1e3}
+    kw = dict(scale=scale, causal=True, window=0, softcap=50.0)
+    out["global"]["layouts_ms"] = {
+        name: min_ms(lambda: fa._launch("wgmma", q, k, v, torch.empty_like(q),
+                                        last=pack, **kw), reps=5, warmup=1)
+        for name, pack in (("groups_paired", 1), ("positions_stacked", 0))}
+    kw0 = dict(scale=scale, causal=True, window=0, softcap=0.0)
+    out["global"]["softcap0_ms"] = min_ms(
+        lambda: ops.flash_attention_gqa(q, k, v, **kw0), reps=5, warmup=1)
+    out["global"]["sustained"] = {
+        f"softcap_{cap:g}": sustained(lambda: ops.flash_attention_gqa(
+            q, k, v, **{**kw, "softcap": cap}), torch)
+        for cap in (50.0, 0.0)}
     qh = q.reshape(1, s, kh * g, dh).transpose(1, 2)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     lib = min_ms(lambda: F.scaled_dot_product_attention(
-        qh, kt, vt, is_causal=True, scale=144 ** -0.5, enable_gqa=True),
+        qh, kt, vt, is_causal=True, scale=scale, enable_gqa=True),
         reps=5, warmup=1)
     out["global"]["library_ms"] = lib
     i = torch.arange(s, device="cuda")
@@ -861,12 +973,13 @@ def time_flash(np, torch):
     kr, vr = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
     out["local"]["library_ms"] = min_ms(
         lambda: F.scaled_dot_product_attention(
-            qh, kr, vr, attn_mask=live, scale=144 ** -0.5),
+            qh, kr, vr, attn_mask=live, scale=scale),
         reps=5, warmup=1)
     out["library_call"] = (
         "F.scaled_dot_product_attention, softcap 0: global is_causal=True, "
-        "enable_gqa=True; local attn_mask = causal & window 4,096 (bool), "
-        "K/V repeated to 32 heads first")
+        "enable_gqa=True (beside the wgmma kernel's softcap0_ms); local "
+        "attn_mask = causal & window 4,096 (bool), K/V repeated to 32 heads "
+        "first")
     return out
 
 
@@ -1299,7 +1412,21 @@ def main() -> int:
             "seconds": info.seconds, "registers": [int(x) for x in regs],
             "smem_bytes": [int(x) for x in smem] or [0],  # 0 is not printed
             "spill_store_bytes": [int(x) for x in spills]})
-    emit({"phase": "build", "wall_s": build_wall, "libraries": libraries})
+    # the tensor-core kernel must contain wgmma: HGMMA in its SASS
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         infos["flash_attention_wgmma"].library],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    hgmma = [ln.split(";")[0].split("*/")[-1].strip()
+             for ln in sass.splitlines() if "HGMMA" in ln]
+    if not hgmma:
+        raise RuntimeError("flash_attention_wgmma: no HGMMA in its SASS")
+    emit({"phase": "build", "wall_s": build_wall, "libraries": libraries,
+          "flash_attention_wgmma_sass": {
+              "hgmma_instructions": len(hgmma),
+              "kinds": sorted({ln.split()[0] + (" tnspB" if "tnspB" in ln
+                                                 else "") for ln in hgmma}),
+              "first": hgmma[0]}})
 
     # ---------------------------------------------- the full-size problem
     t0 = time.perf_counter()
@@ -1379,7 +1506,8 @@ def main() -> int:
         "tolerance": f"per element: atol + rtol * |plain|, atol = rtol = "
                      f"{SEGSUM_TOL}"}, {
         "name": "flash_attention",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": ["src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu"],
         "ok": True, "cases": fl_cases, "launches": fl_check_launches,
         "max_abs_err": fl_err,
         "tolerance": f"fp32: atol + rtol * max|plain|, atol = rtol = "
@@ -1844,7 +1972,7 @@ def main() -> int:
         "ms": bm_ms, "plain_ms": bm_plain_ms, "bound_ms": bm_bound,
         "bound_by": bm_by, "library_ms": None}, {
         "name": "flash_attention", "route": "cuda", "ok": True,
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:87",
         "launches": b8_launches,
         "max_abs_err": fl_err, "shape": fl["global"]["shape"],
@@ -1852,7 +1980,26 @@ def main() -> int:
         "bound_ms": fl["global"]["bound_ms"],
         "bound_by": fl["global"]["bound_by"],
         "library_ms": fl["global"]["library_ms"],
-        "local_layer": fl["local"]}, {
+        "softcap0_ms": fl["global"]["softcap0_ms"],
+        "sfu_ops": fl["global"]["sfu_ops"], "sfu_ms": fl["global"]["sfu_ms"],
+        "local_layer": fl["local"],
+        "variants": {
+            "wgmma": {
+                "source": "src/repro_torch/kernels/csrc/"
+                          "flash_attention_wgmma.cu",
+                "takes": "bfloat16, float16 at dh 64, 128",
+                "launches": lm_rec["flash_attention_launches_by_variant"][
+                    "wgmma"],
+                "check_launches": fl_check_launches["wgmma"],
+                "ms": fl["global"]["ms"], "local_ms": fl["local"]["ms"]},
+            "fma": {
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "takes": "float32; dh 256",
+                "launches": lm_rec["flash_attention_launches_by_variant"][
+                    "fma"],
+                "check_launches": fl_check_launches["fma"],
+                "ms": fl["global"]["fma_ms"],
+                "local_ms": fl["local"]["fma_ms"]}}}, {
         "name": "embedding_bag", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:44",

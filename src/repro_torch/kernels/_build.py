@@ -8,7 +8,9 @@ nothing but the sources in this package goes into the library. A library
 is rebuilt when its ``.cu`` or any shared header ``csrc/*.cuh`` is newer
 than it. ``build_all`` starts one ``nvcc`` per source at once and waits
 for all. A build that fails raises with the compiler's output; there is
-no fallback.
+no fallback. ``LIB_FLAGS`` adds flags to one library's command only:
+``flash_attention_wgmma`` links libcuda (``-lcuda``) for
+``cuTensorMapEncodeTiled``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LIB_FLAGS = {"flash_attention_wgmma": ("-lcuda",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +87,8 @@ def _start(name: str):
     src, lib, _ = _paths(name)
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.parent / f"lib{name}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src),
+           *LIB_FLAGS.get(name, ())]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return name, cmd, tmp, proc, time.perf_counter()

@@ -134,12 +134,14 @@ def _attention_inputs(rng, b, s, t, kh, g, dh, dtype):
 
 @pytest.mark.gpu
 def test_flash_attention_kernel_on_card():
-    """B8 against its plain version: fp32 at 2e-5 (the reference's kernel
-    tolerance; only the summation order differs), bf16/fp16 element by
-    element at one ulp of the output dtype (2^-7 / 2^-10 relative: both
-    round one fp32 result) plus 1e-4 for the fp32 summation noise near 0;
-    causal, windows, softcap, non-causal, G in {1, 2}, dh in {64, 128,
-    256}, S that no tile divides, S != T."""
+    """B8's two kernels against its plain version: fp32 (the FMA kernel) at
+    2e-5 (the reference's kernel tolerance; only the summation order
+    differs), bf16/fp16 (the wgmma kernel at dh 64 and 128, the FMA kernel
+    at dh 256) element by element at one ulp of the output dtype (2^-7 /
+    2^-10 relative: both round one fp32 result) plus 1e-4 for the fp32
+    summation noise near 0; causal, windows, softcap, non-causal, G in
+    {1, 2}, dh in {64, 128, 256}, S that no tile divides, S != T. Each call
+    launches the kernel ``variant`` names, and only it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
     from repro_torch.kernels import flash_attention as fa
@@ -147,7 +149,7 @@ def test_flash_attention_kernel_on_card():
 
     rng = np.random.default_rng(6)
     fa.reset_launches()
-    n = 0
+    n = {"wgmma": 0, "fma": 0}
     cases = [  # (b, s, t, kh, g, dh, causal, window, softcap, dtype)
         (2, 200, 200, 2, 2, 64, True, 0, 0.0, torch.float32),
         (1, 300, 300, 2, 2, 128, True, 64, 50.0, torch.float32),
@@ -156,10 +158,23 @@ def test_flash_attention_kernel_on_card():
         (1, 65, 65, 2, 2, 256, True, 16, 50.0, torch.float32),
         (1, 1000, 1000, 4, 2, 128, True, 256, 50.0, torch.bfloat16),
         (1, 513, 513, 2, 2, 64, True, 0, 0.0, torch.float16),
+        (1, 65, 65, 2, 2, 256, True, 16, 50.0, torch.bfloat16),
+        (2, 96, 160, 2, 2, 64, False, 40, 30.0, torch.bfloat16),
+        (1, 200, 350, 2, 1, 128, False, 0, 50.0, torch.float16),
     ]
-    for b, s, t, kh, g, dh, causal, window, cap, dt in cases:
+    cases = [c + (c[5] ** -0.5,) for c in cases]
+    # scores of std ~11 against softcap 5: the tanh's ex2 + rcp path
+    cases.append((1, 300, 300, 2, 2, 128, True, 64, 5.0, torch.bfloat16, 1.0))
+    for causal, window, cap in ((True, 0, 0.0), (True, 0, 50.0),
+                                (True, 64, 0.0), (True, 64, 50.0),
+                                (False, 0, 0.0)):
+        for g in (1, 2):
+            for dh in (64, 128):
+                cases.append((1, 300, 300, 2, g, dh, causal, window, cap,
+                              torch.bfloat16, dh ** -0.5))
+    for b, s, t, kh, g, dh, causal, window, cap, dt, scale in cases:
         q, k, v = _attention_inputs(rng, b, s, t, kh, g, dh, dt)
-        kw = dict(scale=dh ** -0.5, causal=causal, window=window, softcap=cap)
+        kw = dict(scale=scale, causal=causal, window=window, softcap=cap)
         got = ops.flash_attention_gqa(q, k, v, **kw)
         torch.cuda.synchronize()
         want = flash_attention_torch(q, k, v, **kw)
@@ -170,12 +185,25 @@ def test_flash_attention_kernel_on_card():
             rtol, atol = (2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -10), 1e-4
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=atol)
-        n += 1
-    assert fa.launches() == n
+        kind = "wgmma" if dt != torch.float32 and dh in (64, 128) else "fma"
+        assert fa.variant(dt, dh) == kind
+        n[kind] += 1
+        assert fa.launches_by_variant() == n, (b, s, t, dh, dt)
+    assert fa.launches() == sum(n.values())
+    # rows 136 bytes apart (views of a wider tensor): copied for TMA
+    q, k, v = (x[..., :64] for x in _attention_inputs(
+        rng, 1, 200, 200, 2, 2, 68, torch.bfloat16))
+    kw = dict(scale=0.125, causal=True, window=0, softcap=50.0)
+    torch.testing.assert_close(
+        ops.flash_attention_gqa(q, k, v, **kw).float(),
+        flash_attention_torch(q, k, v, **kw).float(), rtol=2.0 ** -7,
+        atol=1e-4)
+    n["wgmma"] += 1
+    assert fa.launches_by_variant() == n
     q, k, v = _attention_inputs(rng, 1, 64, 64, 2, 2, 48, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention_gqa(q, k, v, scale=1.0)
-    assert fa.launches() == n  # a refused call launches nothing
+    assert fa.launches_by_variant() == n  # a refused call launches nothing
 
 
 @pytest.mark.gpu
