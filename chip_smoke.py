@@ -30,16 +30,23 @@ JSON object on a line of its own:
            16, 2, 128] in bf16; each case asserts which kernel ran); B10
            (``embedding_bag``: the reference's test shapes, D = 18 / L =
            100, fp32/bf16/fp16 tables, sum and mean, an all-masked bag,
-           B = 333); B1 (``intersect_count``); B3 (``resident_intersect``,
+           B = 333); B7 (``epoch_land`` and ``epoch_count``, every method,
+           on four hub problems with phantom slots pointed at real rows and
+           on rounds 0, 16 and 31 of the S16 problem); B1
+           (``intersect_count``); B3 (``resident_intersect``,
            both variants, E in {0,1,7,64,130,1000}, WB in {0,4,32,200},
            evicted slots, S = 1 and 4,096, an out-of-range slot raises); B2
            (``bitmap_intersect_count``, E x W in {1,3,256,1000} x
            {1,3,128,2048}) and B2 against B1 on 512 heavy edges of the S16
            graph packed over [0, n)
   entry    ``repro_torch.launch.lcc_run.main`` at R-MAT scale 12, --verify
-  full     the epoch engine at R-MAT scale 16 / edge factor 16, p = 8:
-           kernel route (``pairwise``) vs plain route (``bsearch``), and
-           the host oracle at scale 14
+  full     the epoch engine at R-MAT scale 16 / edge factor 16, p = 8, 32
+           rounds, cache 256: the kernel route (``hybrid``, ``pairwise``:
+           one ``epoch_land`` and one ``epoch_count`` a round, no B1) vs the
+           padded plain route (``bsearch``, ``plain=True``) bit for bit, each
+           timed (median of 3; 2 for the plain route) with its peak memory
+           beyond the problem's tensors (the kernel route's must stay under
+           1 GiB); the kernel route at scale 14 vs ``triangles_per_vertex``
   pairs    100,000 sampled edges through ``batched_pair_counts``
   stream   ``repro_torch.launch.stream_run.main`` at R-MAT scale 14 / edge
            factor 16, 16 batches, p = 8, device tier of 1,024 x 512 slots,
@@ -84,7 +91,10 @@ JSON object on a line of its own:
            plain route (B9's plain version): every loss within rel 1e-4
   timing   each kernel at full-size shapes (CUDA events) beside its plain
            version, its bound and, where one exists, one PyTorch call of
-           the same function: B1 at the engine's per-round slab, B3 on the
+           the same function: B1 at the padded engine's per-round slab; B7
+           over the 32 rounds of the S16 epoch (each method; plain versions
+           over the same rounds), its bound from this run's valid ids, edge
+           arrays, landing and ``pair_ops`` compares; B3 on the
            4,096 top-degree rows of the S16 graph, B2 on 65,536 edges
            packed over [0, 65,536), B8 at gemma2-27b's prefill layer (global
            and local, both kernels, the special-function count beside the
@@ -126,9 +136,9 @@ RANKS = 8
 CACHE_ROWS = 256
 FULL_ROUNDS = 32
 N_PAIRS = 100_000
-LIBRARIES = ("intersect_count", "resident_intersect", "bitmap_popcount",
-             "flash_attention", "flash_attention_wgmma", "embedding_bag",
-             "segment_sum_sorted")
+LIBRARIES = ("intersect_count", "epoch_count", "resident_intersect",
+             "bitmap_popcount", "flash_attention", "flash_attention_wgmma",
+             "embedding_bag", "segment_sum_sorted")
 STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
@@ -328,6 +338,180 @@ def padded(csr, vertices, width, sentinel, np):
         r = csr.row(int(v))
         out[i, : r.size] = r
     return out
+
+
+def hub_problem(p, n_rounds, cache_rows, seed, np):
+    """Five hubs adjacent to every live vertex (hub x hub pairs on every
+    rank), 3,000 random edges, 4 isolated vertices; phantom edge slots
+    pointed at real rows, so only the mask keeps them out."""
+    from repro_torch.core.cache import build_static_degree_cache
+    from repro_torch.core.csr import from_edges
+    from repro_torch.core.rma import build_sharded_problem
+
+    rng = np.random.default_rng(seed)
+    n, live = 600, 596
+    edges = [(h, v) for h in (0, 1, 150, 300, 451) for v in range(live)]
+    edges += [tuple(e) for e in rng.integers(0, live, size=(3000, 2))]
+    g = from_edges(np.array(edges), n, undirected=True)
+    cache = (build_static_degree_cache(g.degrees, cache_rows)
+             if cache_rows else None)
+    prob = build_sharded_problem(g, p, n_rounds=n_rounds, cache=cache)
+    phantom = ~prob.edge_mask
+    prob.edge_u[phantom] = rng.integers(0, prob.n_loc, phantom.sum())
+    prob.edge_vc[phantom] = rng.integers(0, prob.n_loc, phantom.sum())
+    return prob
+
+
+def check_epoch(dev, full, np, torch):
+    """B7's two kernels against their plain versions, tolerance 0, round by
+    round: ``epoch_land`` (the whole landing buffer) and ``epoch_count``
+    (every method, against the plain ``bsearch`` count) on four hub problems
+    (p 1-8, n_rounds 1-3, cache 0-16) and on rounds 0, NR/2 and NR-1 of the
+    full-size problem ``full``; the phantom row of each rank stays 0.
+    Returns (cases, max_abs_err, launches)."""
+    from repro_torch.kernels import epoch_count as ec
+
+    ec.reset_launches()
+    cases, worst = [], 0
+    probs = [(f"hub p{p} nr{nr} c{c}", hub_problem(p, nr, c, p, np).to_device(
+        dev), None) for p, nr, c in [(1, 1, 0), (4, 1, 0), (4, 3, 8),
+                                     (8, 2, 16)]]
+    probs.append(("full", full, sorted({0, full.n_rounds // 2,
+                                        full.n_rounds - 1})))
+    for tag, dp, rounds in probs:
+        index = ec.epoch_index(dp)
+        width = dp.p * (dp.n_loc + 1)
+        for r in rounds or range(dp.n_rounds):
+            land = torch.full((max(1, dp.land_ids),), -7, dtype=torch.int32,
+                              device=dev)
+            ec.epoch_land(dp, index, r, land)
+            torch.cuda.synchronize()
+            want_land = ec.epoch_land_ref(dp, index, r, land.clone())
+            err = int((land.long() - want_land.long()).abs().max())
+            want = ec.epoch_count_ref(
+                dp, index, r, want_land,
+                torch.zeros(width, dtype=torch.int32, device=dev),
+                method="bsearch")
+            errs = {"epoch_land": err}
+            for method in ("bsearch", "pairwise", "hybrid"):
+                acc = torch.zeros(width, dtype=torch.int32, device=dev)
+                ec.epoch_count(dp, index, r, land, acc, method=method)
+                torch.cuda.synchronize()
+                errs[method] = int((acc.long() - want.long()).abs().max())
+                if int(acc.view(dp.p, -1)[:, dp.n_loc].abs().max()) != 0:
+                    raise RuntimeError(f"epoch_count {tag} round {r}: a "
+                                       "phantom row was written")
+            cases.append({"case": tag, "round": r, "p": dp.p,
+                          "landed_ids": int(index.land_len[r].sum()),
+                          "sum_counts": int(want.long().sum()), "err": errs})
+            worst = max(worst, *errs.values())
+            if any(errs.values()):
+                raise RuntimeError(f"epoch kernels {tag} round {r}: kernel "
+                                   f"!= plain version {errs}")
+            del land, want_land, want
+    return cases, worst, ec.launches()
+
+
+def epoch_pair_lengths(dprob, index, torch):
+    """(na, nb) of every real edge slot of the epoch, on the device."""
+    p, n_loc, s_max = dprob.p, dprob.n_loc, dprob.s_max
+    c = dprob.cache_rows.shape[0]
+    e_chunk = dprob.e_max // dprob.n_rounds
+    dev = dprob.rows_ext.device
+    rank = torch.arange(p, device=dev, dtype=torch.int64)[:, None]
+    real = dprob.edge_mask
+    eu = dprob.edge_u.to(torch.int64)[real]
+    vc = dprob.edge_vc.to(torch.int64)[real]
+    rk = rank.expand(-1, dprob.e_max)[real]
+    rnd = (torch.arange(dprob.e_max, device=dev)[None, :] // e_chunk).expand(
+        p, -1)[real]
+    base = rk * (n_loc + 1)
+    na = index.deg_ext[base + eu]
+    local = vc <= n_loc
+    cache = (vc > n_loc) & (vc < n_loc + 1 + c)
+    item = rk * p * s_max + (vc - (n_loc + 1 + c)).clamp(min=0)
+    nb = torch.where(local, index.deg_ext[base + vc.clamp(max=n_loc)],
+                     index.land_len[rnd, item.clamp(max=p * p * s_max - 1)])
+    if c:
+        nb = torch.where(cache, index.cache_len[(vc - n_loc - 1).clamp(
+            0, c - 1)], nb)
+    return na, nb
+
+
+def time_epoch(dprob, np, torch):
+    """B7's two kernels over one epoch of the full-size problem (CUDA
+    events; the mean of 5 epochs, the lower of two such means): the 32
+    ``epoch_land`` and the 32 ``epoch_count`` launches of each method
+    summed, every round landing into its own buffer so the two are timed
+    apart; the plain versions over the same rounds; bounds from this run's
+    data: ``epoch_count`` reads every valid id of the local and cache rows
+    and of the landing, the edge arrays (u, v: 8 bytes a real slot; the
+    mask: 1 byte a slot) and writes S, and does ``pair_ops`` compares;
+    ``epoch_land`` reads and writes the landed ids and reads its index."""
+    from repro_torch.kernels import epoch_count as ec
+
+    dev = dprob.rows_ext.device
+    nr = dprob.n_rounds
+    index = ec.epoch_index(dprob)
+    lands = [torch.empty(max(1, dprob.land_ids), dtype=torch.int32,
+                         device=dev) for _ in range(nr)]
+    width = dprob.p * (dprob.n_loc + 1)
+    acc = torch.zeros(width, dtype=torch.int32, device=dev)
+
+    def land_all():
+        for r in range(nr):
+            ec.epoch_land(dprob, index, r, lands[r])
+
+    def count_all(method):
+        for r in range(nr):
+            ec.epoch_count(dprob, index, r, lands[r], acc, method=method)
+
+    land_ms = min_ms(land_all, reps=5, warmup=1)
+    count_ms = {m: min_ms(lambda m=m: count_all(m), reps=5, warmup=1)
+                for m in ("hybrid", "pairwise", "bsearch")}
+    acc.zero_()
+    count_all("hybrid")
+    got = acc.clone()
+    ref_lands = [l.clone() for l in lands]
+    land_plain_ms = cuda_ms(
+        lambda: [ec.epoch_land_ref(dprob, index, r, ref_lands[r])
+                 for r in range(nr)], reps=1, warmup=0)
+    want = torch.zeros_like(acc)
+    count_plain_ms = cuda_ms(
+        lambda: [ec.epoch_count_ref(dprob, index, r, ref_lands[r], want,
+                                    method="bsearch") for r in range(nr)],
+        reps=1, warmup=0)
+    err = max(int((got.long() - want.long()).abs().max()),
+              max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(lands, ref_lands)))
+    if err:
+        raise RuntimeError(f"timing: epoch kernels != plain versions ({err})")
+    na, nb = epoch_pair_lengths(dprob, index, torch)
+    ops_count = pair_ops(na, nb, torch)
+    landed = float(index.land_len.to(torch.float64).sum())
+    n_real = float(na.numel())
+    count_bytes = 4.0 * (float(dprob.degrees.to(torch.float64).sum())
+                         + float(index.cache_len.to(torch.float64).sum())
+                         + landed) + 8.0 * n_real \
+        + float(dprob.edge_mask.numel()) + 4.0 * width
+    land_bytes = 8.0 * landed + 4.0 * dprob.serve_idx.numel() \
+        + 12.0 * index.land_len.numel()
+    c_bound, c_by = bound_ms(count_bytes, ops_count)
+    l_bound, l_by = bound_ms(land_bytes, 0.0)
+    del lands, ref_lands
+    return {
+        "rounds": nr, "real_pairs": int(n_real), "landed_ids": int(landed),
+        "epoch_count": {"ms_per_epoch": count_ms,
+                        "ms_per_round": {m: v / nr
+                                         for m, v in count_ms.items()},
+                        "plain_ms_per_epoch": count_plain_ms,
+                        "plain_method": "bsearch", "bytes": count_bytes,
+                        "ops": ops_count, "bound_ms_per_epoch": c_bound,
+                        "bound_by": c_by, "err": err},
+        "epoch_land": {"ms_per_epoch": land_ms, "ms_per_round": land_ms / nr,
+                       "plain_ms_per_epoch": land_plain_ms,
+                       "bytes": land_bytes, "bound_ms_per_epoch": l_bound,
+                       "bound_by": l_by}}
 
 
 def check_resident_intersect(dev, rng, np, torch):
@@ -1381,6 +1565,7 @@ def main() -> int:
     from repro_torch.graphs.rmat import rmat_graph
     from repro_torch.kernels import _build, intersect_count as ic, ops
     from repro_torch.kernels import bitmap_popcount as bm
+    from repro_torch.kernels import epoch_count as ec
     from repro_torch.kernels import resident_intersect as ri
     from repro_torch.kernels.point_query import batched_pair_counts
     from repro_torch.launch import lcc_run
@@ -1498,7 +1683,13 @@ def main() -> int:
     bag_cases, bag_err, bag_check_launches = check_bag(dev, rng, np, torch)
     ss_cases, ss_err, ss_check_launches = check_segment_sum(dev, rng, np,
                                                             torch)
+    ep_cases, ep_err, ep_check_launches = check_epoch(dev, dprob, np, torch)
     emit({"phase": "checks", "kernels": [{
+        "name": "epoch_count",
+        "source": "src/repro_torch/kernels/csrc/epoch_count.cu",
+        "entry_points": ["epoch_land", "epoch_count"],
+        "ok": True, "cases": ep_cases, "launches": ep_check_launches,
+        "max_abs_err": ep_err, "tolerance": 0}, {
         "name": "segment_sum_sorted",
         "source": "src/repro_torch/kernels/csrc/segment_sum_sorted.cu",
         "ok": True, "cases": ss_cases, "launches": ss_check_launches,
@@ -1533,6 +1724,7 @@ def main() -> int:
 
     # ------------------------------------------ main path: counters to 0
     ic.reset_launches()
+    ec.reset_launches()
 
     # -------------------------------------------------------------- entry
     t0 = time.perf_counter()
@@ -1541,35 +1733,59 @@ def main() -> int:
     if rc != 0:
         raise RuntimeError(f"lcc_run.main returned {rc}")
     entry_launches = ic.launches()
+    entry_epoch = ec.launches()
     emit({"phase": "entry", "argv": "--scale 12 --p 8 --cache-rows 256 "
           "--verify", "rc": rc, "seconds": time.perf_counter() - t0,
-          "kernel_launches": entry_launches})
+          "kernel_launches": {"intersect_count": entry_launches,
+                              **entry_epoch}})
 
     # --------------------------------------------------------------- full
-    torch.cuda.reset_peak_memory_stats()
-    epoch = {}
-    result = {}
+    # the kernel route for two methods, then the padded plain route (the
+    # oracle), each epoch's peak memory counted beyond the problem's tensors
+    epoch, result, extra_peak = {}, {}, {}
     launches_per_epoch = None
-    for method in ("pairwise", "bsearch"):
-        before = ic.launches()
-        result[method] = async_engine.lcc_pipelined(dprob, dev, method=method)
-        if method == "pairwise":
-            launches_per_epoch = ic.launches() - before
+    b1_before_full = ic.launches()
+
+    def timed_epochs(tag, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = ec.launches()
+        result[tag] = async_engine.lcc_pipelined(dprob, dev, **kw)
+        extra_peak[tag] = torch.cuda.max_memory_allocated() - base
+        once = {k: ec.launches()[k] - before[k] for k in before}
         walls = []
-        for _ in range(3):
+        for _ in range(3 if tag != "plain" else 2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            async_engine.lcc_pipelined(dprob, dev, method=method)
+            async_engine.lcc_pipelined(dprob, dev, **kw)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        epoch[method] = {"median_s": statistics.median(walls), "runs_s": walls}
-    peak_bytes = torch.cuda.max_memory_allocated()
-    t_k, lcc_k = result["pairwise"]
-    t_p, lcc_p = result["bsearch"]
-    if t_k.dtype != np.int32 or lcc_k.dtype != np.float32:
-        raise RuntimeError(f"engine dtypes {t_k.dtype} {lcc_k.dtype}")
-    if not np.array_equal(t_k, t_p) or not np.array_equal(lcc_k, lcc_p):
-        raise RuntimeError("full: kernel route != plain route")
+        epoch[tag] = {"median_s": statistics.median(walls), "runs_s": walls}
+        return once
+
+    for method in ("hybrid", "pairwise"):
+        once = timed_epochs(method, method=method)
+        if method == "hybrid":
+            launches_per_epoch = once
+        if once != {"epoch_land": prob.n_rounds,
+                    "epoch_count": prob.n_rounds}:
+            raise RuntimeError(f"full: {method} launched {once} in an epoch "
+                               f"of {prob.n_rounds} rounds")
+    timed_epochs("plain", method="bsearch", plain=True)
+    if ic.launches() != b1_before_full:
+        raise RuntimeError("full: the epoch launched intersect_count")
+    t_p, lcc_p = result["plain"]
+    for method in ("hybrid", "pairwise"):
+        t_k, lcc_k = result[method]
+        if t_k.dtype != np.int32 or lcc_k.dtype != np.float32:
+            raise RuntimeError(f"engine dtypes {t_k.dtype} {lcc_k.dtype}")
+        if not np.array_equal(t_k, t_p) or not np.array_equal(lcc_k, lcc_p):
+            raise RuntimeError(f"full: kernel route ({method}) != plain route")
+    if extra_peak["hybrid"] >= 1 << 30:
+        raise RuntimeError(f"full: the epoch took {extra_peak['hybrid']} "
+                           "bytes beyond the problem (limit 1 GiB)")
+    t_k, lcc_k = result["hybrid"]
     if not np.isfinite(lcc_k).all() or lcc_k.min() < 0 or lcc_k.max() > 1:
         raise RuntimeError("full: lcc outside [0, 1]")
     total = int(t_k.astype(np.int64).sum())
@@ -1580,7 +1796,7 @@ def main() -> int:
     csr_o = rmat_graph(ORACLE_SCALE, EDGE_FACTOR, seed=0)
     t0 = time.perf_counter()
     t_o, lcc_o = async_engine.run_distributed_lcc(
-        csr_o, RANKS, n_rounds=8, cache_rows=CACHE_ROWS, method="pairwise",
+        csr_o, RANKS, n_rounds=8, cache_rows=CACHE_ROWS, method="hybrid",
         device=dev)
     oracle_engine_s = time.perf_counter() - t0
     want_t = triangles.triangles_per_vertex(csr_o)
@@ -1588,24 +1804,39 @@ def main() -> int:
         raise RuntimeError("oracle: engine t != triangles_per_vertex")
     if not np.allclose(lcc_o, triangles.lcc_scores(csr_o, want_t), rtol=1e-5):
         raise RuntimeError("oracle: engine lcc != lcc_scores (rtol 1e-5)")
-    full_launches = ic.launches() - entry_launches
+    full_launches = {k: ec.launches()[k] - entry_epoch[k]
+                     for k in entry_epoch}
+    full_b1 = ic.launches() - entry_launches
+    pulled = prob.pulled_ids_per_round()
     emit({"phase": "full", "scale": FULL_SCALE, "edge_factor": EDGE_FACTOR,
           "n": csr.n, "directed_edges": csr.m, "width": w, "p": RANKS,
           "cache_rows": CACHE_ROWS, "n_rounds": prob.n_rounds,
           "e_chunk": prob.e_max // prob.n_rounds, "s_max": prob.s_max,
           "rows_ext_bytes": int(prob.rows_ext.nbytes),
+          "real_edge_slots": int(prob.edge_mask.sum()),
+          "edge_slots": int(prob.edge_mask.size),
+          "real_serve_slots": int((prob.serve_idx < prob.n_loc).sum()),
+          "serve_slots": int(prob.serve_idx.size),
+          "landed_bytes_per_epoch": int(pulled.sum()) * 4,
+          "landing_ids_max_round": dprob.land_ids,
+          "padded_fetch_bytes_per_epoch": int(prob.serve_idx.size) * w * 4,
           "schedule_build_s": schedule_s,
           "triangles": total // 3, "kernel_route_equals_plain_route": True,
           "epoch_wall_s": epoch,
+          "plain_over_kernel": {m: epoch["plain"]["median_s"]
+                                / epoch[m]["median_s"]
+                                for m in ("hybrid", "pairwise")},
           "directed_edges_per_s": {m: csr.m / epoch[m]["median_s"]
                                    for m in epoch},
+          "extra_peak_bytes": extra_peak,
           "kernel_launches_per_epoch": launches_per_epoch,
           "kernel_launches": full_launches,
+          "intersect_count_launches": full_b1,
           "comm_bytes": int(prob.comm_bytes_per_round().sum()),
-          "max_memory_allocated": peak_bytes,
           "oracle": {"scale": ORACLE_SCALE, "n": csr_o.n,
                      "directed_edges": csr_o.m, "width": csr_o.max_degree,
-                     "exact": True, "engine_s": oracle_engine_s}})
+                     "method": "hybrid", "exact": True,
+                     "engine_s": oracle_engine_s}})
 
     # -------------------------------------------------------------- pairs
     before = ic.launches()
@@ -1620,6 +1851,7 @@ def main() -> int:
     pairs_kernel_s = time.perf_counter() - t0
     pairs_launches = ic.launches() - before
     main_path_launches = ic.launches()  # entry + full + pairs, read here
+    main_path_epoch = ec.launches()
     got_host = batched_pair_counts(ra, rb, sentinel=sent, use_kernel=False)
     # the engine's per-edge count: the same kernel on the engine's operands
     # (rows at width W, read from the compiled problem)
@@ -1638,8 +1870,11 @@ def main() -> int:
           "sum_counts": int(got_kernel.sum()),
           "use_kernel_seconds": pairs_kernel_s,
           "kernel_launches": pairs_launches})
-    for tag, n in (("entry", entry_launches), ("full", full_launches),
-                   ("pairs", pairs_launches)):
+    for tag, n in (("entry epoch_land", entry_epoch["epoch_land"]),
+                   ("entry epoch_count", entry_epoch["epoch_count"]),
+                   ("full epoch_land", full_launches["epoch_land"]),
+                   ("full epoch_count", full_launches["epoch_count"]),
+                   ("pairs intersect_count", pairs_launches)):
         if n <= 0:
             raise RuntimeError(f"{tag}: the kernel was never launched")
 
@@ -1802,6 +2037,7 @@ def main() -> int:
     if not same:
         raise RuntimeError("timing: kernel != count_bsearch_torch")
     del rows_a, rows_b
+    ep_t = time_epoch(dprob, np, torch)
 
     # B3 on the tier's shapes over the full-size graph: the TIER_ROWS
     # highest-degree rows resident, padded to their maximum degree
@@ -1898,6 +2134,7 @@ def main() -> int:
               "ops": b1_ops, "kernel_ms": [kernel_ms, kernel_ms_again],
               "count_bsearch_torch_ms": bsearch_ms, "plain_ms": plain_ms,
               "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+              "epoch": ep_t,
               "resident_intersect": b3,
               "bitmap_intersect_count": {
                   "shape": bm_shape, "ms": bm_ms, "plain_ms": bm_plain_ms,
@@ -1939,17 +2176,56 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/intersect_count.cu",
         "replaces": "src/repro/kernels/intersect_count.py:49",
         "launches": main_path_launches + stream_launches["intersect_count"],
-        "launches_entry": entry_launches, "launches_full": full_launches,
+        "launches_entry": entry_launches, "launches_full": full_b1,
         "launches_pairs": pairs_launches,
         "launches_stream": stream_launches["intersect_count"],
         "launches_stream_routes": routes_launches["intersect_count"],
-        "launches_per_epoch": launches_per_epoch,
         "max_abs_err": max_abs_err, "tolerance": 0,
         "shape": [e_t, w, w],
         "ms": min(kernel_ms, kernel_ms_again), "plain_ms": plain_ms,
         "count_bsearch_torch_ms": bsearch_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None}, {
+        "name": "epoch_count", "route": "cuda", "ok": True,
+        "source": "src/repro_torch/kernels/csrc/epoch_count.cu",
+        "replaces": "src/repro/core/async_engine.py:83",
+        "replaces_note": "the body closure of _shard_body (the compiled "
+                         "epoch body, B7); no pallas_call",
+        "launches": main_path_epoch["epoch_count"],
+        "launches_entry": entry_epoch["epoch_count"],
+        "launches_full": full_launches["epoch_count"],
+        "launches_per_epoch": launches_per_epoch["epoch_count"],
+        "max_abs_err": max(ep_err, ep_t["epoch_count"]["err"]),
+        "tolerance": 0, "shape": {
+            "p": RANKS, "n_rounds": prob.n_rounds,
+            "edge_slots_per_round": RANKS * (prob.e_max // prob.n_rounds),
+            "width": w, "method": "hybrid"},
+        "ms": ep_t["epoch_count"]["ms_per_epoch"]["hybrid"],
+        "ms_is": "per epoch (32 launches)",
+        "ms_by_method": ep_t["epoch_count"]["ms_per_epoch"],
+        "plain_ms": ep_t["epoch_count"]["plain_ms_per_epoch"],
+        "bound_ms": ep_t["epoch_count"]["bound_ms_per_epoch"],
+        "bound_by": ep_t["epoch_count"]["bound_by"],
+        "library_ms": None}, {
+        "name": "epoch_land", "route": "cuda", "ok": True,
+        "source": "src/repro_torch/kernels/csrc/epoch_count.cu",
+        "replaces": "src/repro/core/async_engine.py:63",
+        "replaces_note": "the fetch closure of _shard_body (rows_ext "
+                         "[serve_idx] + all_to_all); no pallas_call",
+        "launches": main_path_epoch["epoch_land"],
+        "launches_entry": entry_epoch["epoch_land"],
+        "launches_full": full_launches["epoch_land"],
+        "launches_per_epoch": launches_per_epoch["epoch_land"],
+        "max_abs_err": ep_err, "tolerance": 0,
+        "shape": {"p": RANKS, "n_rounds": prob.n_rounds,
+                  "serve_slots_per_round": RANKS * RANKS * prob.s_max,
+                  "landed_ids": ep_t["landed_ids"]},
+        "ms": ep_t["epoch_land"]["ms_per_epoch"],
+        "ms_is": "per epoch (32 launches)",
+        "plain_ms": ep_t["epoch_land"]["plain_ms_per_epoch"],
+        "bound_ms": ep_t["epoch_land"]["bound_ms_per_epoch"],
+        "bound_by": ep_t["epoch_land"]["bound_by"],
         "library_ms": None}, {
         "name": "resident_intersect", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/resident_intersect.cu",

@@ -2,28 +2,37 @@
 
 The p ranks of the 1D partition are logical: every per-rank array carries
 the rank as its leading dimension ``[p, ...]`` on one torch device, and all
-ranks advance through a round together in one batch: the round's
-``p * e_chunk`` edge slots are flattened across ranks and walked in slabs
-of at most ``_PAIR_SLAB_BYTES`` per gathered operand (``rows * W * 4``
-bytes), so a small problem takes one gather, one count launch and one
-accumulate per round for every rank, and a wide one a few, with the
-temporaries bounded. The fetch buffer is ``p * p * S_max * W * 4`` bytes;
-``n_rounds`` is the schedule knob that shrinks it. Per
-round one all-to-all ships exactly the adjacency rows the static pull
-schedule (``rma.build_sharded_problem``) resolved as remote+uncached; with
-every rank on one device it is the block transpose
-``got[dst, src] = to_send[src, dst]``. Round ``r+1``'s fetch is started
-before round ``r``'s intersection — the paper's double buffering, kept here
-as program order on one stream (the landing copy of round ``r`` comes
-first, so only one in-flight fetch buffer is alive at a time).
+ranks advance through a round together. Per round one all-to-all ships
+exactly the adjacency rows the static pull schedule
+(``rma.build_sharded_problem``) resolved as remote+uncached; with every rank
+on one device it is the block transpose ``got[dst, src] = to_send[src,
+dst]``.
 
-Compute per edge: gather row_u (local) and row_v (local | cache | fetch
-buffer — one combined gather), count |row_u ∩ row_v| with the regime-split
-intersection, and accumulate into S(u) with an int32 ``index_add_``
-(integer adds are exact in any order). LCC follows Eq. (2) in float32.
+``_epoch_acc`` (the engine; ``kernels/epoch_count.py``) moves no padded row:
 
-The combined row buffer is allocated once per epoch and its fetch region is
-overwritten in place every round.
+- per epoch, ``epoch_index`` makes the valid length of every pulled row and
+  its offset in a packed landing buffer (one gather of the degrees through
+  ``serve_idx`` and one ``cumsum``), and the valid length of every cache row;
+- per round, ``epoch_land`` copies the valid prefix of each real pulled row
+  into the landing buffer (the exchange: exactly the ids an RMA get moves),
+  and ``epoch_count`` counts every edge slot of the round by index — u's row
+  from ``rows_ext``, v's from ``rows_ext``, the cache rows or the landing by
+  its combined index, each with its valid length — and adds the count into
+  S(u) with an int32 atomic add (integer adds are exact in any order).
+
+Two landing buffers alternate: round ``r+1``'s landing is enqueued before
+round ``r``'s count, the paper's double buffering kept as program order on
+one stream. On a card both are hand-written CUDA kernels and nothing in the
+rounds loop waits for the device; the first sync is the final ``.cpu()``. On
+the CPU the same rounds run through the kernels' plain versions.
+
+``_epoch_plain_acc`` (``plain=True``) is the padded route the engine is held
+against: per round the fetched rows are copied, at full width W, into a
+combined ``[local | cache | fetched]`` buffer, and the round's edge slots
+are walked in slabs of at most ``_PAIR_SLAB_BYTES`` per gathered operand
+(``rows * W * 4`` bytes), each slab gathered whole, counted by
+``count_bsearch_torch`` / ``count_pairwise_torch`` and accumulated by
+``index_add_``. LCC follows Eq. (2) in float32 on both routes.
 """
 from __future__ import annotations
 
@@ -33,20 +42,39 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.ops import intersect_count
-from .intersect import count_bsearch_torch, regime_rule
+from ..kernels import epoch_count as ec
+from .intersect import count_bsearch_torch, count_pairwise_torch, regime_rule
 from .rma import DeviceLCCProblem, ShardedLCCProblem
 
 __all__ = ["lcc_pipelined", "run_distributed_lcc"]
 
 METHODS = ("bsearch", "pairwise", "hybrid")
 
-# most bytes one gathered operand (rows_a or rows_b) of a slab may take
+# most bytes one gathered operand (rows_a or rows_b) of a slab may take on
+# the plain route
 _PAIR_SLAB_BYTES = 2 << 30
 
 
-def _epoch(prob: DeviceLCCProblem, method: str):
-    """One epoch over all rounds; returns device tensors (t, lcc)."""
+def _epoch_acc(prob: DeviceLCCProblem, method: str) -> torch.Tensor:
+    """One epoch over all rounds by index; returns S, int32 ``[p * (n_loc +
+    1)]`` (the phantom row of each rank stays 0)."""
+    dev = prob.rows_ext.device
+    index = ec.epoch_index(prob)
+    acc = torch.zeros(prob.p * (prob.n_loc + 1), dtype=torch.int32,
+                      device=dev)
+    landing = [torch.empty(max(1, prob.land_ids), dtype=torch.int32,
+                           device=dev) for _ in range(2)]
+    ec.epoch_land(prob, index, 0, landing[0])
+    for r in range(prob.n_rounds):
+        # double buffering: land the next round before this round's count
+        if r + 1 < prob.n_rounds:
+            ec.epoch_land(prob, index, r + 1, landing[(r + 1) % 2])
+        ec.epoch_count(prob, index, r, landing[r % 2], acc, method=method)
+    return acc
+
+
+def _epoch_plain_acc(prob: DeviceLCCProblem, method: str) -> torch.Tensor:
+    """The padded route: whole rows gathered, counted in plain torch."""
     p, n_loc, n_rounds, s_max = prob.p, prob.n_loc, prob.n_rounds, prob.s_max
     sentinel = prob.sentinel
     e_chunk = prob.e_max // n_rounds
@@ -71,13 +99,13 @@ def _epoch(prob: DeviceLCCProblem, method: str):
         if method == "bsearch":
             return count_bsearch_torch(rows_a, rows_b, sentinel)
         if method == "pairwise":
-            return intersect_count(rows_a, rows_b, sentinel=sentinel)
+            return count_pairwise_torch(rows_a, rows_b, sentinel)
         # hybrid: regime select per edge (Eq. 3 analogue)
         deg_b = (rows_b < sentinel).sum(-1, dtype=torch.int32)
         use_pw = regime_rule(deg_a, deg_b, rows_b.shape[-1])
         return torch.where(
             use_pw,
-            intersect_count(rows_a, rows_b, sentinel=sentinel),
+            count_pairwise_torch(rows_a, rows_b, sentinel),
             count_bsearch_torch(rows_a, rows_b, sentinel),
         )
 
@@ -98,9 +126,8 @@ def _epoch(prob: DeviceLCCProblem, method: str):
     slab = max(1, _PAIR_SLAB_BYTES // (4 * w))
     fetched_cur = fetch(0)
     for r in range(n_rounds):
-        # land this round's rows, then — double buffering — start the next
-        # round's fetch before this round's compute, so the exchange
-        # precedes the intersection work.
+        # land this round's rows, then start the next round's fetch before
+        # this round's compute (one in-flight fetch buffer at a time)
         fetch_region.copy_(fetched_cur)
         fetched_cur = fetch(min(r + 1, n_rounds - 1))
         sl = slice(r * e_chunk, (r + 1) * e_chunk)
@@ -115,8 +142,12 @@ def _epoch(prob: DeviceLCCProblem, method: str):
             acc.index_add_(
                 0, eu_s, torch.where(msk[lo : lo + slab], cnt, 0)
             )
+    return acc
 
-    s = acc.view(p, n_loc + 1)[:, :n_loc]
+
+def _scores(prob: DeviceLCCProblem, acc: torch.Tensor):
+    """(t, lcc) device tensors from S."""
+    s = acc.view(prob.p, prob.n_loc + 1)[:, : prob.n_loc]
     t = s // 2  # undirected: each neighbor-edge seen twice in S(i)
     deg = prob.degrees.to(torch.float32)
     denom = deg * (deg - 1.0)
@@ -129,10 +160,12 @@ def lcc_pipelined(
     device="cuda",
     *,
     method: str = "bsearch",
+    plain: bool = False,
 ):
     """Run the engine; returns (t_per_vertex [p, n_loc] int32, lcc [p, n_loc]
     float32) as numpy. ``prob`` is the host problem (copied to ``device``
     first) or its ``to_device`` view, which must already lie on ``device``.
+    ``plain=True`` runs the padded plain route instead (any device).
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
@@ -145,7 +178,8 @@ def lcc_pipelined(
         raise ValueError(
             f"problem lies on {prob.device}, engine asked for {dev}"
         )
-    t, lcc = _epoch(prob, method)
+    acc = (_epoch_plain_acc if plain else _epoch_acc)(prob, method)
+    t, lcc = _scores(prob, acc)
     return t.cpu().numpy(), lcc.cpu().numpy()
 
 

@@ -71,6 +71,10 @@ class DeviceLCCProblem:
     e_max: int
     n_rounds: int
     s_max: int
+    # most ids the valid prefixes of one round's pulled rows hold: the size
+    # of the engine's packed landing buffer, known on the host so the epoch
+    # never reads it back from the device
+    land_ids: int
 
     @property
     def sentinel(self) -> int:
@@ -193,7 +197,16 @@ class ShardedLCCProblem:
             e_max=self.e_max,
             n_rounds=self.n_rounds,
             s_max=self.s_max,
+            land_ids=int(self.pulled_ids_per_round().max(initial=0)),
         )
+
+    def pulled_ids_per_round(self) -> np.ndarray:
+        """[NR] ids of the valid prefixes of the rows pulled in each round,
+        all ranks together: what the packed landing of a round holds."""
+        deg = np.zeros((self.p, self.n_loc + 1), np.int64)
+        deg[:, : self.n_loc] = self.degrees
+        pulled = deg[np.arange(self.p)[:, None, None, None], self.serve_idx]
+        return pulled.sum(axis=(0, 2, 3))  # [src, NR, dst, S] -> [NR]
 
     def comm_bytes_per_round(self) -> np.ndarray:
         """[p, NR] payload bytes each device *receives* per round."""

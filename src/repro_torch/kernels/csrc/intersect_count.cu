@@ -13,9 +13,19 @@
 //
 // Bound: memory. The least work is one read of each row's valid prefix plus
 // one int32 store per pair, over the card's 3.35 TB/s; the arithmetic is a
-// few compares per element read. Design: one warp per pair, the sentinel-
-// prefix search and the search of the shorter prefix in the longer one of
-// warp_intersect.cuh (shared with resident_intersect.cu); lane 0 stores.
+// few compares per element read. Design: one warp per pair. This API carries
+// no lengths, so the warp finds each row's valid length: the first id >=
+// sentinel, by rounds of 32 probes and one ballot each — positions [0, 32)
+// (one coalesced 128-byte read settles every row shorter than 32), then
+// 32 * 2^k (one sector a probe, brackets the length within a factor of 2),
+// then 33-way splits of what is left until 32 positions remain, read
+// together. A row of degree d takes ~2 + log33(d) rounds where a binary
+// search over the padded width takes log2(W) dependent loads (14 for
+// W = 9,754), and reads few sectors: most rows are short. Then it counts the
+// two valid prefixes with pair_intersect.cuh's warp merge or search, chosen
+// per pair by the hybrid rule; lane 0 stores. Validity is decided on the A
+// side as in the reference: B's padding is >= sentinel, so B's valid prefix
+// drops no match.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw
 // device pointers and the current stream, and raises on a non-zero return.
@@ -23,12 +33,53 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_intersect.cuh"
+#include "pair_intersect.cuh"
 
 namespace {
 
+namespace pi = pair_intersect;
+
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreads = kWarpsPerBlock * 32;
+
+// first index of row[0, w) whose id is >= sentinel (w if none), by all 32
+// lanes of a warp; every lane returns it
+__device__ __forceinline__ int valid_length(const int* __restrict__ row, int w,
+                                            int sentinel, int lane) {
+  unsigned ge =
+      __ballot_sync(pi::kFull, lane < w && __ldg(row + lane) >= sentinel);
+  if (ge) return __ffs(ge) - 1;
+  if (w <= 32) return w;
+  // row[0, 32) is valid; lane k probes 32 * 2^k
+  const long long q2 = 32LL << min(lane, 30);
+  ge = __ballot_sync(pi::kFull, q2 < w && __ldg(row + q2) >= sentinel);
+  int lo, hi;  // the answer lies in [lo, hi]
+  if (ge) {
+    const int k0 = __ffs(ge) - 1;
+    hi = 32 << k0;
+    lo = k0 > 0 ? (32 << (k0 - 1)) + 1 : 32;
+  } else {
+    const unsigned below = __ballot_sync(pi::kFull, q2 < w);
+    lo = (32 << (31 - __clz(below))) + 1;
+    hi = w;
+  }
+  while (hi - lo > 32) {
+    const int span = hi - lo;
+    const int q = lo + (int)(((long long)(lane + 1) * span) / 33);
+    ge = __ballot_sync(pi::kFull, __ldg(row + q) >= sentinel);
+    if (ge == 0) {
+      lo = __shfl_sync(pi::kFull, q, 31) + 1;
+    } else {
+      const int k0 = __ffs(ge) - 1;
+      const int q_prev = __shfl_sync(pi::kFull, q, k0 > 0 ? k0 - 1 : 0);
+      hi = __shfl_sync(pi::kFull, q, k0);
+      if (k0 > 0) lo = q_prev + 1;
+    }
+  }
+  const int i = lo + lane;
+  ge = __ballot_sync(pi::kFull, i < hi && __ldg(row + i) >= sentinel);
+  return ge ? lo + __ffs(ge) - 1 : hi;
+}
 
 __global__ void __launch_bounds__(kThreads)
 intersect_count_kernel(const int* __restrict__ rows_a,
@@ -39,9 +90,12 @@ intersect_count_kernel(const int* __restrict__ rows_a,
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (pair >= n_pairs) return;  // ragged edge: whole warps only, no sync below
   const int lane = threadIdx.x & 31;
-  const int hits = warp_intersect::count(rows_a + pair * (long long)wa, wa,
-                                         rows_b + pair * (long long)wb, wb,
-                                         sentinel, lane);
+  const int* a = rows_a + pair * (long long)wa;
+  const int* b = rows_b + pair * (long long)wb;
+  const int na = valid_length(a, wa, sentinel, lane);
+  const int nb = valid_length(b, wb, sentinel, lane);
+  const int hits = pi::group_count<32>(a, na, b, nb, pi::merges(na, nb), lane,
+                                       pi::kFull);
   if (lane == 0) counts[pair] = hits;
 }
 

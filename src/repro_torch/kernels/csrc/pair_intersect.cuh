@@ -1,0 +1,217 @@
+// Count of the common ids of two sorted, deduplicated int32 rows whose valid
+// lengths are given — the device core of epoch_count.cu (B7) and
+// intersect_count.cu (B1).
+//
+// Valid ids are < sentinel <= INT_MAX, so kPad (INT_MAX) pads a ragged tile
+// and never equals a valid id. Two strategies give the same integer:
+//
+//   search  every lane takes elements of the shorter prefix and binary-
+//           searches the longer one, in device memory or in a copy staged in
+//           shared memory (heavy pairs, see block_count). A lane's elements
+//           increase, so its next search starts where its last one ended.
+//           Work ns * ceil(log2(nl + 1)) compares.
+//   merge   both prefixes are walked in G-wide tiles (G = the group's
+//           lanes): every lane finds its element of the A tile in the B tile
+//           by a log2(G)-step search over shuffles, then the tile with the
+//           smaller maximum advances (both on a tie). The next tile of each
+//           row is loaded before the current one is compared, so one load
+//           latency is in flight behind every step. Work na + nb.
+//
+// The hybrid rule (paper §III-C with this card's costs, the cost that
+// chip_smoke.py's pair_ops counts): merge iff na + nb <= ns * ceil(log2(nl+1)).
+//
+// A group is G consecutive lanes of one warp (G = 8 or 32) named by `mask`;
+// every lane of the group calls a group function, gets its partial count,
+// and group_sum folds the partials. block_count is called by every thread of
+// a block and returns the pair's count on thread 0.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pair_intersect {
+
+constexpr int kPad = 0x7fffffff;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Method { kSearch = 0, kMerge = 1, kHybrid = 2 };
+
+// ceil(log2(n + 1)) for n >= 0: the bit length of n
+__device__ __forceinline__ int bit_length(int n) { return 32 - __clz(n); }
+
+__device__ __forceinline__ bool merges(int na, int nb) {
+  const int ns = min(na, nb), nl = max(na, nb);
+  return (long long)na + nb <= (long long)ns * bit_length(nl);
+}
+
+__device__ __forceinline__ bool use_merge(int method, int na, int nb) {
+  return method == kMerge || (method == kHybrid && merges(na, nb));
+}
+
+// compares the chosen strategy needs: what the cost classes are cut by
+__device__ __forceinline__ long long work(bool merge, int na, int nb) {
+  const int ns = min(na, nb), nl = max(na, nb);
+  return merge ? (long long)na + nb : (long long)ns * bit_length(nl);
+}
+
+template <bool kShared>
+__device__ __forceinline__ int load(const int* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// first index in row[0, n) whose value is >= key
+template <bool kShared>
+__device__ __forceinline__ int lower_bound(const int* row, int n, int key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (load<kShared>(row + mid) < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// search: elements first, first + stride, ... of s[0, ns) looked up in
+// l[0, nl); s is in device memory, l where kSharedL says
+template <bool kSharedL>
+__device__ __forceinline__ int search_part(const int* __restrict__ s, int ns,
+                                           const int* l, int nl, int first,
+                                           int stride) {
+  int hits = 0, from = 0;
+  for (int i = first; i < ns; i += stride) {
+    const int x = __ldg(s + i);
+    const int pos = from + lower_bound<kSharedL>(l + from, nl - from, x);
+    hits += (pos < nl && load<kSharedL>(l + pos) == x) ? 1 : 0;
+    from = pos;
+  }
+  return hits;
+}
+
+__device__ __forceinline__ int tile_load(const int* __restrict__ row, int n,
+                                         int i) {
+  return i < n ? __ldg(row + i) : kPad;
+}
+
+// merge of a[0, na) and b[0, nb) by the G lanes of a group
+template <int G>
+__device__ __forceinline__ int merge_part(const int* __restrict__ a, int na,
+                                          const int* __restrict__ b, int nb,
+                                          int g_lane, unsigned mask) {
+  if (na == 0 || nb == 0) return 0;
+  int hits = 0, i0 = 0, j0 = 0;
+  int x = tile_load(a, na, g_lane), y = tile_load(b, nb, g_lane);
+  int xn = tile_load(a, na, G + g_lane), yn = tile_load(b, nb, G + g_lane);
+  while (true) {
+    int lo = 0;  // elements of the B tile < x, capped at G - 1
+#pragma unroll
+    for (int step = G / 2; step >= 1; step >>= 1) {
+      if (__shfl_sync(mask, y, lo + step - 1, G) < x) lo += step;
+    }
+    // every lane of the group takes part in every shuffle: no && before it
+    const int z = __shfl_sync(mask, y, lo, G);
+    hits += (x != kPad && z == x) ? 1 : 0;
+    const int amax = __shfl_sync(mask, x, min(na - i0, G) - 1, G);
+    const int bmax = __shfl_sync(mask, y, min(nb - j0, G) - 1, G);
+    if (amax <= bmax) {
+      i0 += G;
+      if (i0 >= na) break;
+      x = xn;
+      xn = tile_load(a, na, i0 + G + g_lane);
+    }
+    if (bmax <= amax) {
+      j0 += G;
+      if (j0 >= nb) break;
+      y = yn;
+      yn = tile_load(b, nb, j0 + G + g_lane);
+    }
+  }
+  return hits;
+}
+
+template <int G>
+__device__ __forceinline__ int group_sum(int v, unsigned mask) {
+#pragma unroll
+  for (int o = G / 2; o >= 1; o >>= 1) v += __shfl_xor_sync(mask, v, o, G);
+  return v;
+}
+
+// |a ∩ b| by one group; every lane of the group returns the count
+template <int G>
+__device__ __forceinline__ int group_count(const int* __restrict__ a, int na,
+                                           const int* __restrict__ b, int nb,
+                                           bool merge, int g_lane,
+                                           unsigned mask) {
+  int part;
+  if (merge) {
+    part = merge_part<G>(a, na, b, nb, g_lane, mask);
+  } else if (na <= nb) {
+    part = search_part<false>(a, na, b, nb, g_lane, G);
+  } else {
+    part = search_part<false>(b, nb, a, na, g_lane, G);
+  }
+  return group_sum<G>(part, mask);
+}
+
+// |a ∩ b| by every thread of a block of T threads. merge: the longer prefix
+// is cut into one chunk a warp, and each warp merges its chunk with the
+// slice of the shorter prefix that can hold the chunk's matches. search: the
+// longer prefix is staged in shared memory (`stage`, stage_cap ids) when it
+// fits, then every thread searches its elements of the shorter one; `staged`
+// (the same on every thread) names the row `stage` holds, so a row that
+// several heavy pairs share (a hub's) is staged once. `red` holds T / 32
+// ints. Returns the count on thread 0; ends in __syncthreads so `stage` and
+// `red` may be reused at once.
+template <int T>
+__device__ __forceinline__ int block_count(const int* __restrict__ a, int na,
+                                           const int* __restrict__ b, int nb,
+                                           bool merge, int* stage,
+                                           int stage_cap, const int*& staged,
+                                           int* red) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* s = na <= nb ? a : b;
+  const int* l = na <= nb ? b : a;
+  const int ns = min(na, nb), nl = max(na, nb);
+  int part = 0;
+  if (merge) {
+    constexpr int kWarps = T / 32;
+    const int chunk = (nl + kWarps - 1) / kWarps;
+    const int c0 = min(nl, warp * chunk), c1 = min(nl, c0 + chunk);
+    if (c0 < c1) {
+      int s0 = 0, s1 = 0;
+      if (lane == 0) {
+        s0 = lower_bound<false>(s, ns, __ldg(l + c0));
+        s1 = s0 + lower_bound<false>(s + s0, ns - s0, __ldg(l + c1 - 1) + 1);
+      }
+      s0 = __shfl_sync(kFull, s0, 0);
+      s1 = __shfl_sync(kFull, s1, 0);
+      part = merge_part<32>(l + c0, c1 - c0, s + s0, s1 - s0, lane, kFull);
+    }
+  } else if (nl <= stage_cap) {
+    if (l != staged) {
+      for (int i = tid; i < nl; i += T) stage[i] = __ldg(l + i);
+      staged = l;
+      __syncthreads();
+    }
+    part = search_part<true>(s, ns, stage, nl, tid, T);
+  } else {
+    part = search_part<false>(s, ns, l, nl, tid, T);
+  }
+  part = __reduce_add_sync(kFull, part);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  int total = 0;
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 0; w < T / 32; ++w) total += red[w];
+  }
+  __syncthreads();
+  return total;
+}
+
+}  // namespace pair_intersect

@@ -1,5 +1,5 @@
 // Warp-cooperative count of the common ids of two sorted rows — the device
-// code shared by intersect_count.cu (B1) and resident_intersect.cu (B3).
+// code of resident_intersect.cu (B3); B1 and B7 use pair_intersect.cuh.
 //
 // A row is sorted ascending, deduplicated and padded with ids >= sentinel,
 // so its padding is a suffix. One warp handles one pair:

@@ -10,9 +10,10 @@ The compute hot-spot of the paper (edge-centric |adj(u) ∩ adj(v)|):
 ``intersect_count`` launches the kernel for CUDA tensors and takes the
 plain version for CPU tensors — the choice follows the tensor's device and
 nothing else. A build or launch failure raises. The kernel itself (one
-warp per pair, binary search over the valid prefixes; see the note in the
-``.cu`` file) masks the ragged edge, so any ``E >= 0`` and any widths
-``>= 0`` are accepted without phantom-row padding.
+warp per pair: each row's valid length by rounds of 32 probes, then the
+merge or search of ``csrc/pair_intersect.cuh`` by the hybrid rule; see the
+note in the ``.cu`` file) masks the ragged edge, so any ``E >= 0`` and any
+widths ``>= 0`` are accepted without phantom-row padding.
 """
 from __future__ import annotations
 

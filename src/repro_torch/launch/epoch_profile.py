@@ -1,13 +1,15 @@
 """Where one epoch of the engine spends its device time.
 
     python -m repro_torch.launch.epoch_profile --scale 16 --edge-factor 16 \\
-        --p 8 --cache-rows 256 --n-rounds 32 --method pairwise
+        --p 8 --cache-rows 256 --n-rounds 32 --method hybrid [--plain]
 
 Builds the R-MAT problem, warms the engine up, then traces one epoch with
 ``torch.profiler`` and prints one JSON line: the card, the epoch's wall
 time, the summed device time of every kernel, the share of the wall time in
-which the device ran nothing (idle share), and the kernels by device time.
-Needs a CUDA device.
+which the device ran nothing (idle share), the kernels by device time, and
+the epoch's peak device memory beyond the problem's own tensors (from the
+untraced warm-up). ``--plain`` profiles the padded plain route instead of
+the kernels. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -24,8 +26,12 @@ def main(argv=None) -> int:
     ap.add_argument("--p", type=int, default=8)
     ap.add_argument("--cache-rows", type=int, default=256)
     ap.add_argument("--n-rounds", type=int, default=32)
-    ap.add_argument("--method", default="pairwise",
+    ap.add_argument("--method", default="hybrid",
                     choices=["bsearch", "pairwise", "hybrid"])
+    ap.add_argument("--plain", action="store_true",
+                    help="the padded plain route, not the kernels; at full "
+                         "size only with --method bsearch (its pairwise "
+                         "count compares all W x W slots of a pair)")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
 
@@ -44,11 +50,16 @@ def main(argv=None) -> int:
              if args.cache_rows else None)
     prob = build_sharded_problem(csr, args.p, n_rounds=args.n_rounds,
                                  cache=cache).to_device(dev)
-    lcc_pipelined(prob, dev, method=args.method)  # warm-up (and build)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # warm-up (and build)
+    lcc_pipelined(prob, dev, method=args.method, plain=args.plain)
+    extra_peak = torch.cuda.max_memory_allocated() - base
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lcc_pipelined(prob, dev, method=args.method)
+        lcc_pipelined(prob, dev, method=args.method, plain=args.plain)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -70,9 +81,11 @@ def main(argv=None) -> int:
         "card": smi, "scale": args.scale, "edge_factor": args.edge_factor,
         "p": args.p, "cache_rows": args.cache_rows,
         "n_rounds": prob.n_rounds, "method": args.method,
+        "route": "plain" if args.plain else "kernels",
         "directed_edges": csr.m, "width": csr.max_degree,
         "epoch_wall_ms_traced": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms) if rows else None,
+        "epoch_extra_peak_bytes": extra_peak,
         "kernels": rows[: args.top],
     }))
     if not rows:

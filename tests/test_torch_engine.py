@@ -83,10 +83,14 @@ def test_engine_slab_walk_is_invisible(monkeypatch, method):
     g = powerlaw_graph(120, 8, seed=1)
     prob = rma.build_sharded_problem(g, 4, n_rounds=2)
     whole = async_engine.lcc_pipelined(prob, "cpu", method=method)
-    # 7 pair rows per slab: several ragged slabs per round
+    same_engine_output(
+        async_engine.lcc_pipelined(prob, "cpu", method=method, plain=True),
+        whole)
+    # the plain route, 7 pair rows per slab: several ragged slabs per round
     monkeypatch.setattr(async_engine, "_PAIR_SLAB_BYTES", 7 * 4 * prob.width)
     same_engine_output(
-        async_engine.lcc_pipelined(prob, "cpu", method=method), whole)
+        async_engine.lcc_pipelined(prob, "cpu", method=method, plain=True),
+        whole)
 
 
 def test_engine_rejects_unknown_method_and_misplaced_problem():

@@ -290,3 +290,106 @@ def test_segment_sum_sorted_kernel_on_card():
     with pytest.raises(TypeError, match="float32"):
         ops.segment_sum_sorted(v3.double(), s3, num_segments=20)
     assert ss.launches() == n_calls + 1  # a refused call launches nothing
+
+
+def _hub_problem(p, n_rounds, cache_rows, seed):
+    """Five hubs adjacent to every live vertex (hub x hub pairs), random
+    edges, 4 isolated vertices; the compiled problem of ``p`` ranks."""
+    from repro_torch.core import rma
+    from repro_torch.core.cache import build_static_degree_cache
+    from repro_torch.core.csr import from_edges
+
+    rng = np.random.default_rng(seed)
+    n, live = 600, 596
+    edges = [(h, v) for h in (0, 1, 150, 300, 451) for v in range(live)]
+    edges += [tuple(e) for e in rng.integers(0, live, size=(3000, 2))]
+    g = from_edges(np.array(edges), n, undirected=True)
+    cache = (build_static_degree_cache(g.degrees, cache_rows)
+             if cache_rows else None)
+    return rma.build_sharded_problem(g, p, n_rounds=n_rounds, cache=cache)
+
+
+@pytest.mark.gpu
+def test_epoch_land_and_count_kernels_on_card():
+    """B7's two kernels against their plain versions, bit for bit, round by
+    round: hub x hub pairs, rows of all three regions, phantom slots that
+    point at real rows, n_rounds 1, every method; the phantom row of each
+    rank stays 0; one launch of each a round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.kernels import epoch_count as ec
+
+    ec.reset_launches()
+    n_land = n_count = 0
+    for p, n_rounds, cache_rows in [(1, 1, 0), (4, 1, 0), (4, 3, 8),
+                                    (8, 2, 16)]:
+        prob = _hub_problem(p, n_rounds, cache_rows, seed=p)
+        phantom = ~prob.edge_mask
+        rng = np.random.default_rng(p)
+        prob.edge_u[phantom] = rng.integers(0, prob.n_loc, phantom.sum())
+        prob.edge_vc[phantom] = rng.integers(0, prob.n_loc, phantom.sum())
+        dprob, cprob = prob.to_device("cuda"), prob.to_device("cpu")
+        index, cindex = ec.epoch_index(dprob), ec.epoch_index(cprob)
+        for r in range(prob.n_rounds):
+            land = torch.full((max(1, dprob.land_ids),), -7,
+                              dtype=torch.int32, device="cuda")
+            ec.epoch_land(dprob, index, r, land)
+            n_land += 1
+            want_land = ec.epoch_land_ref(cprob, cindex, r, land.cpu().clone())
+            assert torch.equal(land.cpu(), want_land), (p, r)
+            want = ec.epoch_count_ref(
+                cprob, cindex, r, want_land,
+                torch.zeros(p * (prob.n_loc + 1), dtype=torch.int32),
+                method="bsearch")
+            assert int(want.sum()) > 0
+            for method in ("bsearch", "pairwise", "hybrid"):
+                acc = torch.zeros(p * (prob.n_loc + 1), dtype=torch.int32,
+                                  device="cuda")
+                ec.epoch_count(dprob, index, r, land, acc, method=method)
+                n_count += 1
+                torch.cuda.synchronize()
+                assert torch.equal(acc.cpu(), want), (p, r, method)
+                assert (acc.view(p, -1)[:, prob.n_loc] == 0).all()
+    assert ec.launches() == {"epoch_land": n_land, "epoch_count": n_count}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_epoch_on_card_matches_triangles(p):
+    """The engine on the card at R-MAT S10 against ``triangles_per_vertex``
+    for every method: one ``epoch_land`` and one ``epoch_count`` a round,
+    no B1 launch, and a rounds loop that never synchronises the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.core import async_engine, triangles
+    from repro_torch.core.cache import build_static_degree_cache
+    from repro_torch.core.partition import partition_1d
+    from repro_torch.core.rma import build_sharded_problem
+    from repro_torch.graphs.rmat import rmat_graph
+    from repro_torch.kernels import epoch_count as ec
+
+    csr = rmat_graph(10, 16, seed=0)
+    want = triangles.triangles_per_vertex(csr)
+    prob = build_sharded_problem(
+        csr, p, n_rounds=6,
+        cache=build_static_degree_cache(csr.degrees, 32)).to_device("cuda")
+    part = partition_1d(csr.n, p)
+    for method in ("bsearch", "pairwise", "hybrid"):
+        async_engine._epoch_acc(prob, method)  # build and load first
+        torch.cuda.synchronize()
+        ec.reset_launches()
+        ic.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            acc = async_engine._epoch_acc(prob, method)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert ec.launches() == {"epoch_land": prob.n_rounds,
+                                 "epoch_count": prob.n_rounds}
+        assert ic.launches() == 0
+        t = acc.view(p, -1)[:, : prob.n_loc].cpu().numpy() // 2
+        got = np.concatenate([t[k, : part.hi(k) - part.lo(k)]
+                              for k in range(p)])
+        assert np.array_equal(got, want), method
+        t_e, _ = async_engine.lcc_pipelined(prob, "cuda", method=method)
+        assert np.array_equal(t_e, t)

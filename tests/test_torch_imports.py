@@ -57,7 +57,8 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.kernels._build", "repro_torch.kernels.bitmap_popcount",
     "repro_torch.kernels.bucketing",
     "repro_torch.kernels.delta_intersect",
-    "repro_torch.kernels.embedding_bag", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.embedding_bag", "repro_torch.kernels.epoch_count",
+    "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.intersect_count", "repro_torch.kernels.ops",
     "repro_torch.kernels.point_query", "repro_torch.kernels.ref",
     "repro_torch.kernels.resident_intersect",
