@@ -34,8 +34,12 @@ JSON object on a line of its own:
            on four hub problems with phantom slots pointed at real rows and
            on rounds 0, 16 and 31 of the S16 problem); B1
            (``intersect_count``); B3 (``resident_intersect``,
-           both variants, E in {0,1,7,64,130,1000}, WB in {0,4,32,200},
-           evicted slots, S = 1 and 4,096, an out-of-range slot raises); B2
+           both variants, slot lengths given (true, cut or
+           overlong) and not given, E in {0,1,7,64,130,1000}, WB in
+           {0,4,32,200}, evicted slots, S = 1 and 4,096; a hub residency
+           with rows of 12,000 and near 9,754 ids, pairs in runs sharing
+           slot_a and shuffled, ids below 2^16 and 2^20; an out-of-range
+           slot raises); B2
            (``bitmap_intersect_count``, E x W in {1,3,256,1000} x
            {1,3,128,2048}) and B2 against B1 on 512 heavy edges of the S16
            graph packed over [0, n)
@@ -95,7 +99,11 @@ JSON object on a line of its own:
            over the 32 rounds of the S16 epoch (each method; plain versions
            over the same rounds), its bound from this run's valid ids, edge
            arrays, landing and ``pair_ops`` compares; B3 on the
-           4,096 top-degree rows of the S16 graph, B2 on 65,536 edges
+           4,096 top-degree rows of the S16 graph with their lengths
+           (``launch/resident_timing.py``: ``vs_slots``, the same pairs
+           shuffled and ``vs_rows``, with ids that fit the kernel's bitmap
+           and again padded to 2^20, interleaved; every batch checked whole
+           against ``count_bsearch_torch``), B2 on 65,536 edges
            packed over [0, 65,536), B8 at gemma2-27b's prefill layer (global
            and local, both kernels, the special-function count beside the
            bound; the global layer at softcap 0 too, in both row layouts of
@@ -148,9 +156,6 @@ ROUTES_ARGV = ["--scale", "12", "--edge-factor", "16", "--batches", "8",
                "--device-tier", "--device-scope", "per_rank",
                "--device-slots", "256", "--device-width", "256",
                "--partition", "hub", "--rebalance", "--maintain-schedule"]
-TIER_ROWS = 4096  # resident rows of the B3 timing: the top-degree rows
-VS_SLOTS_PAIRS = 262_144
-VS_ROWS_PAIRS = 65_536
 VS_SLOTS_PLAIN_PAIRS = 2048  # the all-pairs plain version costs ~W^2/pair
 BITMAP_PAIRS = 65_536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -227,23 +232,6 @@ def nvidia_smi_line() -> str:
     if not out:
         raise RuntimeError("nvidia-smi printed nothing")
     return out[0].strip()
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def sustained(fn, torch, seconds=2.0):
@@ -324,20 +312,6 @@ def pair_ops(na, nb, torch) -> float:
     ns, nl = torch.minimum(na, nb), torch.maximum(na, nb)
     return float(torch.minimum(ns * torch.ceil(torch.log2(nl + 1)),
                                na + nb).sum())
-
-
-def min_ms(fn, reps=20, warmup=3):
-    """The lower of two CUDA-event timings of ``fn`` (``reps`` calls each)."""
-    return min(cuda_ms(fn, reps=reps, warmup=warmup),
-               cuda_ms(fn, reps=reps, warmup=warmup))
-
-
-def padded(csr, vertices, width, sentinel, np):
-    out = np.full((len(vertices), width), sentinel, np.int32)
-    for i, v in enumerate(vertices):
-        r = csr.row(int(v))
-        out[i, : r.size] = r
-    return out
 
 
 def hub_problem(p, n_rounds, cache_rows, seed, np):
@@ -514,52 +488,111 @@ def time_epoch(dprob, np, torch):
                        "bound_by": l_by}}
 
 
+def hub_residency(rng, np, sent=1 << 16, universe=24_000):
+    """A hub residency for B3: one row of 12,000 ids, rows near the S16
+    graph's widest (9,000-9,754), short rows (0-200 ids) and evicted
+    (all-sentinel) slots; ids drawn from ``[0, universe)`` so hub rows share
+    thousands of ids. Returns (rows [64, 12,288], sentinel)."""
+    widths = [12_000] + list(rng.integers(9_000, 9_755, 15))
+    widths += list(rng.integers(0, 201, 40)) + [0] * 8
+    res = np.full((len(widths), 12_288), sent, np.int32)
+    for i, k in enumerate(widths):
+        res[i, :k] = np.sort(rng.choice(universe, size=int(k), replace=False))
+    return res, sent
+
+
 def check_resident_intersect(dev, rng, np, torch):
-    """B3 vs its plain version, tolerance 0: both variants, ragged E, query
-    widths 0-200, evicted (all-sentinel) slots, S = 1 and S = 4096; an
-    out-of-range slot raises. Returns (cases, max_abs_err)."""
+    """B3 vs its plain version, tolerance 0, with the slot
+    lengths given (the true ones; cut or overlong ones) and not given: both
+    variants at ragged E, query widths 0-200, evicted slots, S = 1 and
+    4,096 (W = 64); then a hub residency (``hub_residency``: rows of 12,000
+    and 9,000-9,754 ids, heavy pairs) with ``vs_slots`` pairs in runs that
+    share ``slot_a`` (bitmap runs) and the same pairs shuffled, and
+    ``vs_rows`` pairs in runs against uploaded hub-wide rows, with ids
+    below 2^16 and below 2^20 (no bitmap). An out-of-range slot raises
+    before a launch. Returns (cases, max_abs_err)."""
     from repro_torch.kernels import resident_intersect as ri
 
-    sent = 4096
     cases, worst = [], 0
-    for s, w in ((1, 16), (4096, 64)):
+
+    def up(x):
+        return None if x is None else torch.from_numpy(
+            np.ascontiguousarray(x, np.int32)).to(dev)
+
+    def held(case, res_t, sa, rows, sb, sent, lens_modes, perm=None):
+        """Every lengths mode against the plain version; with
+        ``perm``, the pairs again in that order against the same counts."""
+        nonlocal worst
+        orders = [("as_given", slice(None))]
+        if perm is not None:
+            orders.append(("shuffled", perm))
+        for lens_tag, lens in lens_modes:
+            want = ri.resident_intersect_ref(
+                res_t, up(sa), up(rows), slots_b=up(sb), lengths=lens,
+                sentinel=sent).cpu().numpy()
+            for order, idx in orders:
+                got = ri.resident_intersect_counts(
+                    res_t, sa[idx], None if rows is None else rows[idx],
+                    slots_b=None if sb is None else sb[idx], lengths=lens,
+                    sentinel=sent, device=dev)
+                torch.cuda.synchronize()
+                if got.dtype != np.int64 or got.shape != sa.shape:
+                    raise RuntimeError(f"B3 output {got.dtype} {got.shape}")
+                err = int(np.abs(got - want[idx]).max()) if sa.size else 0
+                worst = max(worst, err)
+                if err:
+                    raise RuntimeError(f"B3 {case} {lens_tag} {order}: "
+                                       f"kernel != plain (err {err})")
+        cases.append({**case, "lengths": [t for t, _ in lens_modes],
+                      "orders": [o for o, _ in orders], "err": 0})
+
+    def lens_modes(res, sent):
+        true = (res < sent).sum(1).astype(np.int32)
+        off = true + rng.integers(-3, 4, true.size).astype(np.int32)
+        return [("none", None), ("true", up(true)),
+                ("cut_or_overlong", up(off))]
+
+    for s, w, sent in ((1, 16, 4096), (4096, 64, 4096)):
         res = pad_sorted(rng, s, w, sent, np)
         evicted = rng.choice(s, size=max(1, s // 16), replace=False)
         res[evicted] = sent
-        res_t = torch.from_numpy(res).to(dev)
+        res_t, modes = up(res), lens_modes(res, sent)
         for e in (0, 1, 7, 64, 130, 1000):
             sa = rng.integers(0, s, e)
             sb = rng.integers(0, s, e)
             if e:
                 sa[0] = evicted[0]
                 sb[-1] = evicted[0]
-            sa_t = torch.from_numpy(sa.astype(np.int32)).to(dev)
-            sb_t = torch.from_numpy(sb.astype(np.int32)).to(dev)
-            runs = [("vs_slots", None, sb)]
-            runs += [("vs_rows", pad_sorted(rng, e, wb, sent, np), None)
-                     for wb in (0, 4, 32, 200)]
-            for variant, rows, slots_b in runs:
-                got = ri.resident_intersect_counts(
-                    res_t, sa, rows, slots_b=slots_b, sentinel=sent,
-                    device=dev)
-                torch.cuda.synchronize()
-                want = ri.resident_intersect_ref(
-                    res_t, sa_t,
-                    None if rows is None else torch.from_numpy(rows).to(dev),
-                    slots_b=None if slots_b is None else sb_t,
-                    sentinel=sent).cpu().numpy()
-                if got.dtype != np.int64 or got.shape != (e,):
-                    raise RuntimeError(f"B3 output {got.dtype} {got.shape}")
-                err = int(np.abs(got - want).max()) if e else 0
-                worst = max(worst, err)
-                cases.append({"variant": variant, "S": s, "W": w, "E": e,
-                              "WB": w if rows is None else rows.shape[1],
-                              "err": err})
-                if err:
-                    raise RuntimeError(f"B3 {cases[-1]}: kernel != plain")
+            held({"variant": "vs_slots", "S": s, "W": w, "E": e}, res_t, sa,
+                 None, sb, sent, modes)
+            for wb in (0, 4, 32, 200):
+                held({"variant": "vs_rows", "S": s, "W": w, "E": e,
+                      "WB": wb}, res_t, sa, pad_sorted(rng, e, wb, sent, np),
+                     None, sent, modes)
+    # hub rows: runs of pairs sharing slot_a, then the same pairs shuffled;
+    # ids < 2^16 (bitmap runs) and < 2^20 (no bitmap: the id space is wider
+    # than the kernel's bitmap)
+    for sent in (1 << 16, 1 << 20):
+        res, _ = hub_residency(rng, np, sent=sent)
+        res_t, modes = up(res), lens_modes(res, sent)
+        s = res.shape[0]
+        runs = rng.integers(1, 40, 80)
+        sa = np.repeat(rng.integers(0, s, runs.size), runs)[:1500]
+        sb = rng.integers(0, s, sa.size)
+        sb[: sa.size // 2] = rng.integers(0, 16, sa.size // 2)  # hub x hub
+        held({"variant": "vs_slots", "S": s, "W": res.shape[1], "E": sa.size,
+              "sentinel": sent, "hub": True}, res_t, sa, None, sb, sent,
+             modes, perm=rng.permutation(sa.size))
+        # uploaded rows of another hub residency: hub x hub pairs are heavy
+        sa = np.repeat(rng.integers(0, s, 12), 32)
+        rows = hub_residency(rng, np, sent=sent)[0][rng.integers(0, s,
+                                                                 sa.size)]
+        held({"variant": "vs_rows", "S": s, "W": res.shape[1], "E": sa.size,
+              "WB": rows.shape[1], "sentinel": sent, "hub": True}, res_t, sa,
+             rows, None, sent, modes, perm=rng.permutation(sa.size))
     before = ri.launches()
     try:
-        ri.resident_intersect_counts(res_t, np.array([0, 4096]),
+        ri.resident_intersect_counts(res_t, np.array([0, s]),
                                      slots_b=np.array([0, 0]), sentinel=sent,
                                      device=dev)
     except ValueError:
@@ -641,10 +674,12 @@ class CallRecorder:
             self.seconds[route] += time.perf_counter() - t0
             self.calls[route] += 1
             self.pairs[route] += len(slots_a)
+            lens = kw.get("lengths")
             self._keep(route, len(slots_a), lambda: (
                 residency.clone(), slots_a.copy(),
                 None if rows_b is None else rows_b.copy(),
                 None if slots_b is None else slots_b.copy(),
+                None if lens is None else lens.clone(),
                 kw["sentinel"], out))
             return out
 
@@ -668,26 +703,29 @@ class CallRecorder:
 
     def recheck(self, dev, np):
         """Largest B3 call of each variant, again: kernel vs plain version
-        on the same inputs. Returns ({variant: shape}, max_abs_err)."""
+        on the same inputs (the tier's lengths included). Returns
+        ({variant: shape}, max_abs_err)."""
         from repro_torch.kernels import resident_intersect as ri
 
         torch = self.torch
         shapes, worst = {}, 0
         for route in ("vs_rows", "vs_slots"):
-            e, (res, sa, rows_b, slots_b, sent, got) = self.largest[route]
+            e, (res, sa, rows_b, slots_b, lens, sent, got) = \
+                self.largest[route]
             want = ri.resident_intersect_ref(
                 res, torch.from_numpy(sa.astype(np.int32)).to(dev),
                 None if rows_b is None else torch.from_numpy(rows_b).to(dev),
                 slots_b=(None if slots_b is None else
                          torch.from_numpy(slots_b.astype(np.int32)).to(dev)),
-                sentinel=sent).cpu().numpy()
+                lengths=lens, sentinel=sent).cpu().numpy()
             again = ri.resident_intersect_counts(
-                res, sa, rows_b, slots_b=slots_b, sentinel=sent, device=dev)
+                res, sa, rows_b, slots_b=slots_b, lengths=lens, sentinel=sent,
+                device=dev)
             err = int(max(np.abs(got - want).max(), np.abs(again - want).max()))
             worst = max(worst, err)
             shapes[route] = {"residency": list(res.shape), "E": e,
                              "WB": None if rows_b is None else rows_b.shape[1],
-                             "err": err}
+                             "lengths": lens is not None, "err": err}
             if err:
                 raise RuntimeError(f"stream: B3 {route} kernel != plain "
                                    f"at the path's largest call {shapes}")
@@ -1548,6 +1586,8 @@ def time_segment_sum(dev, np, torch):
 
 
 def main() -> int:
+    # the timing statistic of every kernel time, shared with the package
+    global cuda_ms, min_ms
     import torch
 
     if not torch.cuda.is_available():
@@ -1568,7 +1608,8 @@ def main() -> int:
     from repro_torch.kernels import epoch_count as ec
     from repro_torch.kernels import resident_intersect as ri
     from repro_torch.kernels.point_query import batched_pair_counts
-    from repro_torch.launch import lcc_run
+    from repro_torch.launch import lcc_run, resident_timing
+    from repro_torch.obs.timing import cuda_ms, min_ms
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1948,6 +1989,7 @@ def main() -> int:
     if busy_ms > prof_s * 1e3:
         raise RuntimeError(f"stream: device busy {busy_ms} ms exceeds the "
                            f"profiled window {prof_s * 1e3} ms")
+    stream_b3_device_ms = by_kernel["resident_intersect_kernel"]
     stream_out["profiled"] = {
         "seconds": prof_s, "batch_wall_s": run_p["wall_s"],
         "updates_per_s": run_p["engine"].n_updates / run_p["wall_s"],
@@ -2039,69 +2081,63 @@ def main() -> int:
     del rows_a, rows_b
     ep_t = time_epoch(dprob, np, torch)
 
-    # B3 on the tier's shapes over the full-size graph: the TIER_ROWS
-    # highest-degree rows resident, padded to their maximum degree
-    deg = csr.degrees.astype(np.int64)
-    top = np.sort(np.argsort(-deg, kind="stable")[:TIER_ROWS])
-    w_res = int(deg[top].max())
-    residency = torch.from_numpy(padded(csr, top, w_res, sent, np)).to(dev)
-    n_res = torch.from_numpy(deg[top]).to(dev)  # valid length per slot
-    slot_of = np.full(csr.n, -1, np.int64)
-    slot_of[top] = np.arange(top.size)
-    s_src, s_dst = slot_of[src], slot_of[dst]
-    both = np.flatnonzero((s_src >= 0) & (s_dst >= 0))[:VS_SLOTS_PAIRS]
-    one = np.flatnonzero((s_src >= 0) != (s_dst >= 0))[:VS_ROWS_PAIRS]
-    res_end = np.where(s_src[one] >= 0, src[one], dst[one])
-    other = np.where(s_src[one] >= 0, dst[one], src[one])
-    w_other = int(deg[other].max())
-    sa = torch.from_numpy(s_src[both].astype(np.int32)).to(dev)
-    sb = torch.from_numpy(s_dst[both].astype(np.int32)).to(dev)
-    sr = torch.from_numpy(slot_of[res_end].astype(np.int32)).to(dev)
-    rows_o = torch.from_numpy(padded(csr, other, w_other, sent, np)).to(dev)
-    n_o = torch.from_numpy(deg[other]).to(dev)
-    # each resident row the pairs touch, read once
-    res_bytes_slots = float(deg[top][np.unique(np.concatenate(
-        [s_src[both], s_dst[both]]))].sum()) * 4
-    res_bytes_rows = float(deg[np.unique(res_end)].sum()) * 4
-    b3 = {}
+    # B3 on the tier's shapes over the full-size graph (launch/
+    # resident_timing.py): the 4,096 highest-degree rows resident with
+    # their valid lengths; vs_slots in CSR order and shuffled, vs_rows; at
+    # the graph's sentinel (ids fit the kernel's bitmap) and at 2^20 (the
+    # same ids, too wide for it: every pair searched)
+    sh = resident_timing.tier_shapes(csr, dev)
+    b3_shapes = {"ids_fit": sh, "wide_ids": resident_timing.widened(sh)}
+    # every batch whole, with and without lengths, against
+    # count_bsearch_torch on the gathered rows
+    b3_check = resident_timing.check(b3_shapes,
+                                     resident_timing.bsearch_counts(sh))
+    b3_ms = resident_timing.time_batches(b3_shapes)
+    b3 = {"check_vs_count_bsearch": b3_check,
+          "pairs": resident_timing.shape_stats(
+              sh, torch.cuda.get_device_properties(dev).multi_processor_count)}
+    kw = {"lengths": sh.lens, "sentinel": sh.sentinel}
     for variant, e_v, run_k, run_p, na, nb, wb, in_bytes in (
-        ("vs_slots", both.size,
-         lambda k: ri.resident_intersect(residency, sa[:k], slots_b=sb[:k],
-                                         sentinel=sent),
-         lambda k: ri.resident_intersect_ref(residency, sa[:k],
-                                             slots_b=sb[:k], sentinel=sent),
-         n_res[sa.long()], n_res[sb.long()], w_res,
-         res_bytes_slots + 8.0 * both.size),
-        ("vs_rows", one.size,
-         lambda k: ri.resident_intersect(residency, sr[:k], rows_o[:k],
-                                         sentinel=sent),
-         lambda k: ri.resident_intersect_ref(residency, sr[:k], rows_o[:k],
-                                             sentinel=sent),
-         n_res[sr.long()], n_o, w_other,
-         res_bytes_rows + 4.0 * one.size + float(n_o.sum()) * 4),
+        ("vs_slots", sh.sa.shape[0],
+         lambda k: ri.resident_intersect(sh.residency, sh.sa[:k],
+                                         slots_b=sh.sb[:k], **kw),
+         lambda k: ri.resident_intersect_ref(sh.residency, sh.sa[:k],
+                                             slots_b=sh.sb[:k], **kw),
+         sh.lens[sh.sa.long()], sh.lens[sh.sb.long()], sh.residency.shape[1],
+         sh.res_bytes_slots + 8.0 * sh.sa.shape[0]),
+        ("vs_rows", sh.sr.shape[0],
+         lambda k: ri.resident_intersect(sh.residency, sh.sr[:k],
+                                         sh.rows_o[:k], **kw),
+         lambda k: ri.resident_intersect_ref(sh.residency, sh.sr[:k],
+                                             sh.rows_o[:k], **kw),
+         sh.lens[sh.sr.long()], sh.n_other, sh.rows_o.shape[1],
+         sh.res_bytes_rows + 4.0 * sh.sr.shape[0]
+         + float(sh.n_other.sum()) * 4),
     ):
         k_plain = e_v if variant == "vs_rows" else min(e_v,
                                                        VS_SLOTS_PLAIN_PAIRS)
-        ms_k = min_ms(lambda: run_k(e_v))
         ms_k_at_plain = min_ms(lambda: run_k(k_plain))
         ms_p = cuda_ms(lambda: run_p(k_plain), reps=1, warmup=0)
-        err = int((run_k(e_v).long() - run_p(e_v).long()).abs().max()
-                  if variant == "vs_rows" else
-                  (run_k(k_plain).long() - run_p(k_plain).long()).abs().max())
+        err = int((run_k(k_plain).long() - run_p(k_plain).long()).abs().max())
         if err:
             raise RuntimeError(f"timing: B3 {variant} kernel != plain")
         ops_v = pair_ops(na, nb, torch)
         bnd, by = bound_ms(in_bytes + 4.0 * e_v, ops_v)
         b3[variant] = {
-            "shape": {"residency": [TIER_ROWS, w_res], "E": int(e_v),
+            "shape": {"residency": list(sh.residency.shape), "E": int(e_v),
                       "WB": int(wb)},
-            "ms": ms_k, "plain_ms": ms_p, "plain_pairs": int(k_plain),
+            "ms": b3_ms["ids_fit"][variant],
+            "wide_ids_ms": b3_ms["wide_ids"][variant],
+            "plain_ms": ms_p, "plain_pairs": int(k_plain),
             "ms_at_plain_pairs": ms_k_at_plain, "err": err,
             "bytes": in_bytes + 4.0 * e_v,
             "per_pair_prefix_bytes": float((na.sum() + nb.sum()) * 4),
             "ops": ops_v,
             "bound_ms": bnd, "bound_by": by}
-    del residency, rows_o, sa, sb, sr
+    b3["vs_slots"]["shuffled_ms"] = b3_ms["ids_fit"]["vs_slots_shuffled"]
+    b3["vs_slots"]["wide_ids_shuffled_ms"] = \
+        b3_ms["wide_ids"]["vs_slots_shuffled"]
+    del sh, b3_shapes
 
     # B2 on 65,536 edges of the full-size graph packed over [0, n)
     n_words = -(-csr.n // 32)
@@ -2237,6 +2273,9 @@ def main() -> int:
         "shape": vs_rows["shape"], "ms": vs_rows["ms"],
         "plain_ms": vs_rows["plain_ms"], "bound_ms": vs_rows["bound_ms"],
         "bound_by": vs_rows["bound_by"], "library_ms": None,
+        "on_path_ms": stream_b3_device_ms,
+        "on_path_is": "device ms of all B3 launches of the profiled "
+                      "stream run (same argv as the counted run)",
         "variants": b3}, {
         "name": "bitmap_intersect_count", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/bitmap_popcount.cu",

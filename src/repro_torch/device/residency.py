@@ -31,10 +31,14 @@ merge + padding + upload (host-row materialization);
 ``stats.bytes_saved`` ledgers exactly those bytes.
 
 On the device, ``rows`` is one persistent int32 tensor ``[slots,
-max_width]`` on the manager's ``device``: a rebuild uploads it whole, a
-patch writes only the changed slots with one ``index_copy_``. The tensor
-never shares memory with the mirror (on the CPU too), so a missed sync
-shows up as a mirror/device divergence in ``audit()``.
+max_width]`` on the manager's ``device``, and ``lens`` an int32 tensor
+``[slots]`` beside it: the valid length of each slot (its ``widths``
+entry; 0 for an empty or evicted slot), which the ``resident_intersect``
+kernel (B3) reads instead of searching each row for its padding. A
+rebuild uploads both whole, a patch writes only the changed slots of both
+with one ``index_copy_`` each. Neither shares memory with the mirror (on
+the CPU too), so a missed sync shows up as a mirror/device divergence in
+``audit()``.
 """
 from __future__ import annotations
 
@@ -112,6 +116,7 @@ class ResidencyManager:
             (self.slots, self.max_width), self.sentinel, np.int32
         )
         self.rows: Optional[torch.Tensor] = None  # set by _sync_device
+        self.lens: Optional[torch.Tensor] = None  # [slots] int32, with rows
         self.stats = ResidencyStats()
         self.rebuilds = 0
         # optional workload-driven selection score: callable
@@ -182,19 +187,23 @@ class ResidencyManager:
         self._sync_device()
 
     def _sync_device(self, changed_slots: Optional[np.ndarray] = None) -> None:
-        """Full upload on rebuild, else one ``index_copy_`` of the changed
-        slots. Both copy: ``torch.tensor`` copies the mirror, and the
-        fancy-indexed ``_host[changed_slots]`` is a fresh array that the
-        next batch does not mutate, so no later ``_write``/``_evict`` can
-        reach ``rows`` without passing through here."""
+        """Full upload of ``rows`` and ``lens`` on rebuild, else one
+        ``index_copy_`` of the changed slots into each. All copy:
+        ``torch.tensor`` copies the mirror, and the fancy-indexed
+        ``_host[changed_slots]`` / ``widths[changed_slots]`` are fresh
+        arrays that the next batch does not mutate, so no later
+        ``_write``/``_evict`` can reach the device without passing through
+        here."""
         if self.rows is None or changed_slots is None:
             self.rows = torch.tensor(self._host, device=self.device)
+            self.lens = torch.tensor(self.widths, device=self.device)
         elif changed_slots.size:
             idx = torch.from_numpy(changed_slots.astype(np.int64))
+            idx = idx.to(self.device)
             src = torch.from_numpy(self._host[changed_slots])
-            self.rows.index_copy_(
-                0, idx.to(self.device), src.to(self.device)
-            )
+            self.rows.index_copy_(0, idx, src.to(self.device))
+            lens = torch.from_numpy(self.widths[changed_slots])
+            self.lens.index_copy_(0, idx, lens.to(self.device))
 
     # ---------------- probes ----------------
     @property
@@ -400,10 +409,11 @@ class ResidencyManager:
     def audit(self) -> Tuple[int, int]:
         """(resident_rows, stale_rows): every resident slot compared
         bit-exactly against the authoritative store row, and the device
-        buffer against the host mirror."""
+        buffer and its lengths against the host mirror."""
         occupied = np.flatnonzero(self.slot_ids >= 0)
         stale = 0
         dev = self.rows.cpu().numpy()
+        dev_lens = self.lens.cpu().numpy()
         for s in occupied.tolist():
             v = int(self.slot_ids[s])
             w = int(self.widths[s])
@@ -413,4 +423,6 @@ class ResidencyManager:
                 stale += 1
             elif not np.array_equal(dev[s], self._host[s]):
                 stale += 1  # mirror/device divergence is also staleness
+            elif dev_lens[s] != w:
+                stale += 1  # so is a device length that is not the row's
         return int(occupied.size), stale

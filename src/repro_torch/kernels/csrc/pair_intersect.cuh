@@ -1,6 +1,7 @@
 // Count of the common ids of two sorted, deduplicated int32 rows whose valid
-// lengths are given — the device core of epoch_count.cu (B7) and
-// intersect_count.cu (B1).
+// lengths are given — the device core of epoch_count.cu (B7),
+// intersect_count.cu (B1) and resident_intersect.cu (B3; B3 alone calls the
+// search with K lookups in flight, search_part_ilp / group_count_ilp).
 //
 // Valid ids are < sentinel <= INT_MAX, so kPad (INT_MAX) pads a ragged tile
 // and never equals a valid id. Two strategies give the same integer:
@@ -155,6 +156,55 @@ __device__ __forceinline__ int group_count(const int* __restrict__ a, int na,
   } else {
     part = search_part<false>(b, nb, a, na, g_lane, G);
   }
+  return group_sum<G>(part, mask);
+}
+
+// search with K lookups in flight: a lane takes K elements of s at a time
+// (first, first + stride, ..., first + (K - 1) * stride, then K * stride on)
+// and looks them up in l[from, nl) together, by a branch-free search of one
+// length for all K, so K independent loads stand behind every step; `from`
+// then moves to the last one's position. Each lookup finds the last index
+// whose id is <= x and checks it: ceil(log2(nl - from)) + 1 loads. Gives
+// search_part's integer (s and l in device memory).
+template <int K>
+__device__ __forceinline__ int search_part_ilp(const int* __restrict__ s,
+                                               int ns,
+                                               const int* __restrict__ l,
+                                               int nl, int first, int stride) {
+  int hits = 0, from = 0;
+  for (int i = first; i < ns && from < nl; i += K * stride) {
+    int x[K], at[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = i + k * stride;
+      x[k] = j < ns ? __ldg(s + j) : kPad;
+      at[k] = from;
+    }
+    for (int n = nl - from; n > 1;) {
+      const int half = n >> 1;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        at[k] = __ldg(l + at[k] + half) <= x[k] ? at[k] + half : at[k];
+      }
+      n -= half;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) hits += __ldg(l + at[k]) == x[k] ? 1 : 0;
+    from = at[K - 1];
+  }
+  return hits;
+}
+
+// |a ∩ b| by the G lanes of a group, the shorter prefix searched in the
+// longer by search_part_ilp<K>
+template <int G, int K>
+__device__ __forceinline__ int group_count_ilp(const int* __restrict__ a,
+                                               int na,
+                                               const int* __restrict__ b,
+                                               int nb, int g_lane,
+                                               unsigned mask) {
+  const int part = na <= nb ? search_part_ilp<K>(a, na, b, nb, g_lane, G)
+                            : search_part_ilp<K>(b, nb, a, na, g_lane, G);
   return group_sum<G>(part, mask);
 }
 

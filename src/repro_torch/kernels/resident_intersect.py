@@ -1,25 +1,37 @@
 """Intersect query rows against device-resident slots: the hand-written CUDA
-kernel (``csrc/resident_intersect.cu``, B3), its wrappers and its plain
-torch version.
+kernel (``csrc/resident_intersect.cu`` on ``csrc/pair_intersect.cuh``, B3),
+its wrappers and its plain torch version.
 
 The device tier (``repro_torch.device.ResidencyManager``) keeps the
 degree-scored hot adjacency rows persistently resident in a padded
-``[slots, max_width]`` int32 tensor. The host intersection path would
-gather those rows back to host, re-pack and re-upload them per call; this
-kernel reads them where they are:
+``[slots, max_width]`` int32 tensor, and the valid length of each slot in
+an int32 ``[slots]`` tensor beside it (``lens``). The host intersection
+path would gather those rows back to host, re-pack and re-upload them per
+call; this kernel reads them where they are:
 
   in:   residency [S, W] i32 (sorted rows, sentinel-padded), slots_a [E] i32,
         and rows_b [E, WB] i32 (one uploaded side) XOR slots_b [E] i32
-        (both sides resident)
+        (both sides resident); optionally lengths [S] i32, the valid length
+        of each slot (positions at or past it count as invalid)
   out:  counts [E] i32, counts[e] = |residency[slots_a[e]] ∩ B[e]|
+
+Without ``lengths`` the kernel finds each row's valid prefix itself; the
+valid prefix of an uploaded ``rows_b`` row is always found in the kernel (a
+search of the sentinel over WB), so no lengths are computed or uploaded
+for it. Each pair searches the shorter row in the longer. Where the ids fit
+the kernel's bitmap (``sentinel <= 2**17``: graphs of fewer than 131,072
+vertices), a run of consecutive pairs that share ``slot_a`` may instead be
+counted against a bitmap of that row in shared memory, when streaming the
+run's rows costs less than searching them. Both give the same integers.
 
 ``resident_intersect`` takes tensors and follows their device: the kernel
 for CUDA tensors, the plain version (``resident_intersect_ref``: an
-``index_select`` of the resident rows, then ``intersect_count_ref``) for
-CPU tensors. ``resident_intersect_counts`` is the ragged-batch entry the
-streaming engine calls: numpy slots (range-checked on the host) and query
-rows, any ``E >= 0``, int64 counts. The kernel masks the ragged edge, so
-no pair padding. Each variant keeps its own launch counter.
+``index_select`` of the resident rows, positions past ``lengths`` masked,
+then ``intersect_count_ref``) for CPU tensors. ``resident_intersect_counts``
+is the ragged-batch entry the streaming engine calls: numpy slots
+(range-checked on the host) and query rows, any ``E >= 0``, int64 counts.
+The kernel masks the ragged edge, so no pair padding. Each variant keeps
+its own launch counter.
 """
 from __future__ import annotations
 
@@ -59,22 +71,38 @@ def reset_launches() -> None:
         _launches[k] = 0
 
 
+def _cut(rows: torch.Tensor, lens: torch.Tensor, sentinel: int):
+    """``rows`` with every position at or past its row's length set to
+    ``sentinel``."""
+    cols = torch.arange(rows.shape[1], device=rows.device)
+    return torch.where(cols[None, :] < lens[:, None].long(), rows,
+                       torch.full_like(rows, sentinel))
+
+
 def resident_intersect_ref(
     residency: torch.Tensor,
     slots_a: torch.Tensor,
     rows_b: Optional[torch.Tensor] = None,
     *,
     slots_b: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
     sentinel: int,
 ) -> torch.Tensor:
-    """Plain torch version: gather the resident rows, then the plain
-    pairwise intersect. ``rows_b`` XOR ``slots_b``."""
-    a = residency.index_select(0, slots_a.long())
-    b = rows_b if slots_b is None else residency.index_select(0, slots_b.long())
+    """Plain torch version: gather the resident rows (each cut to its
+    ``lengths`` entry when given), then the plain pairwise intersect.
+    ``rows_b`` XOR ``slots_b``."""
+    def gather(slots):
+        rows = residency.index_select(0, slots.long())
+        if lengths is None:
+            return rows
+        return _cut(rows, lengths.index_select(0, slots.long()), sentinel)
+
+    a = gather(slots_a)
+    b = rows_b if slots_b is None else gather(slots_b)
     return intersect_count_ref(a, b, sentinel=sentinel)
 
 
-def _check(residency, slots_a, rows_b, slots_b) -> None:
+def _check(residency, slots_a, rows_b, slots_b, lengths) -> None:
     if (rows_b is None) == (slots_b is None):
         raise ValueError("pass rows_b XOR slots_b")
     named = [("residency", residency, 2), ("slots_a", slots_a, 1)]
@@ -82,6 +110,8 @@ def _check(residency, slots_a, rows_b, slots_b) -> None:
         named.append(("rows_b", rows_b, 2))
     else:
         named.append(("slots_b", slots_b, 1))
+    if lengths is not None:
+        named.append(("lengths", lengths, 1))
     for name, t, dim in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
@@ -97,16 +127,18 @@ def _check(residency, slots_a, rows_b, slots_b) -> None:
     if other.shape[0] != slots_a.shape[0]:
         raise ValueError(
             f"pair counts differ: {slots_a.shape[0]} vs {other.shape[0]}")
+    if lengths is not None and lengths.shape[0] != residency.shape[0]:
+        raise ValueError(f"lengths: expected [S={residency.shape[0]}], got "
+                         f"{tuple(lengths.shape)}")
 
 
 def _function():
     fn = _build.load(_LIB).resident_intersect_launch
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -118,22 +150,28 @@ def resident_intersect(
     rows_b: Optional[torch.Tensor] = None,
     *,
     slots_b: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
     sentinel: int,
 ) -> torch.Tensor:
     """``|residency[slots_a[e]] ∩ B[e]|`` per pair, int32 ``[E]`` on the
     residency's device; ``B`` is ``rows_b[e]`` or ``residency[slots_b[e]]``.
-    Slots must lie in ``[0, S)`` (``resident_intersect_counts`` checks;
-    the kernel reads an out-of-range slot as an empty row). Launches on
-    the current stream and does not synchronise."""
-    _check(residency, slots_a, rows_b, slots_b)
+    ``lengths`` (int32 ``[S]``, beside the residency) is each slot's valid
+    length. Slots must lie in ``[0, S)`` (``resident_intersect_counts``
+    checks; the kernel reads an out-of-range slot as an empty row).
+    Launches on the current stream and does not synchronise."""
+    _check(residency, slots_a, rows_b, slots_b, lengths)
     if residency.device.type == "cpu":
         return resident_intersect_ref(residency, slots_a, rows_b,
-                                      slots_b=slots_b, sentinel=sentinel)
+                                      slots_b=slots_b, lengths=lengths,
+                                      sentinel=sentinel)
     if residency.device.type != "cuda":
         raise ValueError(f"unsupported device {residency.device}")
     operands = [residency, slots_a, rows_b if rows_b is not None else slots_b]
+    if lengths is not None:
+        operands.append(lengths)
     if not all(t.is_contiguous() for t in operands):
-        raise ValueError("residency, slots and rows_b must be contiguous")
+        raise ValueError(
+            "residency, slots, rows_b and lengths must be contiguous")
     s, w = residency.shape
     e = slots_a.shape[0]
     counts = torch.empty((e,), dtype=torch.int32, device=residency.device)
@@ -144,7 +182,9 @@ def resident_intersect(
     fn = _function()
     with torch.cuda.device(residency.device):
         err = fn(
-            residency.data_ptr(), s, w, slots_a.data_ptr(),
+            residency.data_ptr(), s, w,
+            None if lengths is None else lengths.data_ptr(),
+            slots_a.data_ptr(),
             None if slots_b is None else slots_b.data_ptr(),
             None if rows_b is None else rows_b.data_ptr(), wb,
             counts.data_ptr(), e, int(sentinel),
@@ -169,31 +209,37 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
     return dev.index is None or t.device.index == dev.index
 
 
+def _resident(name, x, dev):
+    """A tensor that must already lie on ``dev`` (never copied: the tier's
+    tensors stay resident), or numpy, uploaded."""
+    if isinstance(x, torch.Tensor):
+        if not _on(x, dev):
+            raise ValueError(f"{name} lives on {x.device}, not on {dev}")
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+
+
 def resident_intersect_counts(
     residency,  # [S, W] int32: torch tensor (stays put) or numpy (uploaded)
     slots_a: np.ndarray,  # [E] slot indices in [0, S)
     rows_b: Optional[np.ndarray] = None,  # [E, WB] int32 sorted, padded
     *,
     slots_b: Optional[np.ndarray] = None,
+    lengths=None,  # [S] int32 valid length per slot, beside the residency
     sentinel: int,
     device="cuda",
 ) -> np.ndarray:
     """Ragged-friendly wrapper: any E >= 0, returns int64 [E].
 
-    A tensor ``residency`` must already lie on ``device`` (it is never
-    copied here: the tier's rows stay resident); a numpy one is uploaded.
-    Every slot is checked to lie in ``[0, S)`` and a ValueError names the
-    first that does not."""
+    A tensor ``residency`` (or ``lengths``) must already lie on ``device``
+    (it is never copied here: the tier's tensors stay resident); a numpy
+    one is uploaded. Every slot is checked to lie in ``[0, S)`` and a
+    ValueError names the first that does not."""
     if (rows_b is None) == (slots_b is None):
         raise ValueError("pass rows_b XOR slots_b")
     dev = resolve_device(device)
-    if isinstance(residency, torch.Tensor):
-        if not _on(residency, dev):
-            raise ValueError(
-                f"residency lives on {residency.device}, not on {dev}")
-        res = residency
-    else:
-        res = torch.from_numpy(np.ascontiguousarray(residency, np.int32)).to(dev)
+    res = _resident("residency", residency, dev)
+    lens = None if lengths is None else _resident("lengths", lengths, dev)
     n_slots = res.shape[0]
     slots = [np.ascontiguousarray(slots_a, np.int64)]
     if slots_b is not None:
@@ -212,11 +258,11 @@ def resident_intersect_counts(
     t_slots = [torch.from_numpy(sl.astype(np.int32)).to(dev) for sl in slots]
     if slots_b is not None:
         cnt = resident_intersect(res, t_slots[0], slots_b=t_slots[1],
-                                 sentinel=sentinel)
+                                 lengths=lens, sentinel=sentinel)
     else:
         rb = np.ascontiguousarray(rows_b, np.int32)
         if rb.ndim != 2 or rb.shape[0] != e:
             raise ValueError(f"rows_b must be [E={e}, WB], got {rb.shape}")
         cnt = resident_intersect(res, t_slots[0], torch.from_numpy(rb).to(dev),
-                                 sentinel=sentinel)
+                                 lengths=lens, sentinel=sentinel)
     return cnt.cpu().numpy().astype(np.int64)

@@ -440,8 +440,9 @@ class StreamingLCCEngine:
         resident -> slot-vs-slot gather on device (zero upload); one
         side resident -> gather vs the packed other side; neither ->
         the classic ``delta_intersect`` path (B1). The resident side is
-        read from the tier's device tensor ``dev.rows``, never from its
-        host mirror, so resident rows are not uploaded again."""
+        read from the tier's device tensor ``dev.rows``, with each slot's
+        valid length from ``dev.lens``, never from its host mirror, so
+        resident rows are not uploaded again."""
         k = u.shape[0]
         if dev is None or not (res_u.any() or res_v.any()):
             return delta_intersect_counts(
@@ -457,19 +458,19 @@ class StreamingLCCEngine:
         if both.any():
             c[both] = resident_intersect_counts(
                 dev.rows, slots_u[both], slots_b=slots_v[both],
-                sentinel=sent, device=self.device,
+                lengths=dev.lens, sentinel=sent, device=self.device,
             )
             self.oo_resident_pairs += int(np.count_nonzero(both))
         if only_u.any():
             c[only_u] = resident_intersect_counts(
                 dev.rows, slots_u[only_u], rows_v[only_u],
-                sentinel=sent, device=self.device,
+                lengths=dev.lens, sentinel=sent, device=self.device,
             )
             self.oo_resident_pairs += int(np.count_nonzero(only_u))
         if only_v.any():
             c[only_v] = resident_intersect_counts(
                 dev.rows, slots_v[only_v], rows_u[only_v],
-                sentinel=sent, device=self.device,
+                lengths=dev.lens, sentinel=sent, device=self.device,
             )
             self.oo_resident_pairs += int(np.count_nonzero(only_v))
         if neither.any():

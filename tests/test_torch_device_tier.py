@@ -1,7 +1,8 @@
 """The device tier: kernel B3 (``resident_intersect_counts``, plain torch
 version on ``device="cpu"``) and ``ResidencyManager`` held against the
 reference package on the same seeded numpy inputs, on the scenarios of
-``tests/test_device_tier.py``.
+``tests/test_device_tier.py``; B3's slot lengths (``lengths``, the tier's
+``lens`` tensor) against the reference fed rows cut to those lengths.
 
 The reference runs its Pallas kernel in interpret mode. All results are
 integers: counts, stats, slot ids, epochs and the resident rows tensor are
@@ -22,12 +23,13 @@ from repro.kernels.resident_intersect import (
 from repro.streaming import DynamicCSR as RefDynamicCSR
 from repro.streaming import EdgeBatch as RefEdgeBatch
 from repro.streaming import StreamingLCCEngine as RefEngine
-from repro_torch.core.csr import CSRGraph
+from repro_torch.core.csr import CSRGraph, from_edges
 from repro_torch.core.runtime import ShardedRuntime
 from repro_torch.device import ResidencyManager
 from repro_torch.kernels import resident_intersect as ri
 from repro_torch.kernels.resident_intersect import resident_intersect_counts
 from repro_torch.streaming import DynamicCSR, EdgeBatch, StreamingLCCEngine
+from repro_torch.streaming import incremental
 
 
 def random_rows(rng, n_rows, width, id_space):
@@ -55,8 +57,15 @@ def same_fields(got, want):
 # --------------------------------------------------------------------------
 # B3 vs the reference kernel (interpret mode)
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("e,wb", [(1, 4), (7, 8), (64, 16), (130, 32)])
-def test_resident_intersect_counts_match_reference(e, wb):
+PAIR_GRID = [(1, 4), (7, 8), (64, 16), (130, 32)]
+
+
+def held_against_reference(e, wb, lengths):
+    """Both variants against the reference, with no slot lengths
+    (``"none"``), the tier's true ones (``"true"``), or lengths that cut
+    rows short or run past them (``"cut_or_overlong"``): the reference is
+    fed the rows cut to the lengths (positions at or past them set to
+    sentinel)."""
     rng = np.random.default_rng(e * 31 + wb)
     sent = 500
     res = random_rows(rng, 12, 24, sent)
@@ -65,22 +74,40 @@ def test_resident_intersect_counts_match_reference(e, wb):
     sa = rng.integers(0, 12, e).astype(np.int32)
     sb = rng.integers(0, 12, e).astype(np.int32)
     sa[0] = 5
+    lens = (res < sent).sum(1).astype(np.int32)  # the tier's lens
+    if lengths == "cut_or_overlong":
+        lens = lens + rng.integers(-4, 5, lens.size).astype(np.int32)
+    cut = np.where(np.arange(res.shape[1])[None, :] < lens[:, None], res,
+                   sent)
+    want = ref_resident_intersect_counts(cut, sa, rows, sentinel=sent,
+                                         interpret=True)
+    want2 = ref_resident_intersect_counts(cut, sa, slots_b=sb, sentinel=sent,
+                                          interpret=True)
     ri.reset_launches()
-    for res_in in (res, torch.from_numpy(res.copy())):
-        got = resident_intersect_counts(res_in, sa, rows, sentinel=sent,
-                                        device="cpu")
-        want = ref_resident_intersect_counts(res, sa, rows, sentinel=sent,
-                                             interpret=True)
+    for res_in, lens_in in ((res, lens),
+                            (torch.from_numpy(res.copy()),
+                             torch.from_numpy(lens.copy()))):
+        kw = {"lengths": None if lengths == "none" else lens_in,
+              "sentinel": sent, "device": "cpu"}
+        got = resident_intersect_counts(res_in, sa, rows, **kw)
         same_array(got, want)
         assert got[0] == 0
-        got2 = resident_intersect_counts(res_in, sa, slots_b=sb,
-                                         sentinel=sent, device="cpu")
-        want2 = ref_resident_intersect_counts(res, sa, slots_b=sb,
-                                              sentinel=sent, interpret=True)
+        got2 = resident_intersect_counts(res_in, sa, slots_b=sb, **kw)
         same_array(got2, want2)
         assert got2[0] == 0
     # the plain version ran: no kernel was launched on the CPU
     assert ri.launches() == {"vs_rows": 0, "vs_slots": 0}
+
+
+@pytest.mark.parametrize("e,wb", PAIR_GRID)
+def test_resident_intersect_counts_match_reference(e, wb):
+    held_against_reference(e, wb, "none")
+
+
+@pytest.mark.parametrize("lengths", ["true", "cut_or_overlong"])
+@pytest.mark.parametrize("e,wb", PAIR_GRID)
+def test_resident_intersect_lengths_match_reference(e, wb, lengths):
+    held_against_reference(e, wb, lengths)
 
 
 def test_resident_intersect_empty_batch_and_evicted_pairs():
@@ -126,6 +153,34 @@ def test_resident_intersect_checks_its_inputs():
                               torch.from_numpy(rows), sentinel=99)
 
 
+@pytest.mark.parametrize("bad,err,match", [
+    (torch.zeros(4, dtype=torch.int64), TypeError, "int32"),
+    (torch.zeros(5, dtype=torch.int32), ValueError, "lengths"),
+    (torch.zeros((4, 1), dtype=torch.int32), ValueError, "dims"),
+    (torch.zeros(4, dtype=torch.int32, device="meta"), ValueError, "meta"),
+    (np.zeros(3, np.int32), ValueError, "lengths"),
+])
+def test_resident_intersect_refuses_bad_lengths(bad, err, match):
+    """Lengths of the wrong dtype, shape or device are refused before any
+    launch, by both entry points."""
+    res = torch.full((4, 8), 99, dtype=torch.int32)
+    rows = np.full((2, 3), 99, np.int32)
+    ri.reset_launches()
+    with pytest.raises(err, match=match):
+        resident_intersect_counts(res, np.array([0, 1]), rows, lengths=bad,
+                                  sentinel=99, device="cpu")
+    with pytest.raises(err, match=match):
+        resident_intersect_counts(res, np.array([0, 1]),
+                                  slots_b=np.array([1, 2]), lengths=bad,
+                                  sentinel=99, device="cpu")
+    if isinstance(bad, torch.Tensor):
+        with pytest.raises(err, match=match):
+            ri.resident_intersect(res, torch.zeros(2, dtype=torch.int32),
+                                  torch.from_numpy(rows), lengths=bad,
+                                  sentinel=99)
+    assert ri.launches() == {"vs_rows": 0, "vs_slots": 0}
+
+
 # --------------------------------------------------------------------------
 # ResidencyManager on the scenarios of tests/test_device_tier.py
 # --------------------------------------------------------------------------
@@ -137,6 +192,17 @@ def manager_pair(n, avg_deg, seed, **kw):
             ResidencyManager(port_store, device="cpu", **kw), port_store)
 
 
+def lens_follow_rows(mgr):
+    """The tier's device lengths: int32 ``[slots]`` beside ``rows``, equal
+    to each row's valid length and to the host ``widths`` (0 when empty)."""
+    assert mgr.lens.dtype == torch.int32 and mgr.lens.shape == (mgr.slots,)
+    assert mgr.lens.device == mgr.rows.device
+    valid = (mgr.rows < mgr.sentinel).sum(1, dtype=torch.int32)
+    same_array(mgr.lens.numpy(), valid.numpy())
+    same_array(mgr.lens.numpy(), mgr.widths)
+    assert not np.shares_memory(mgr.lens.numpy(), mgr.widths)
+
+
 def same_manager(got, want):
     same_fields(got.stats, want.stats)
     same_array(got.slot_ids, want.slot_ids)
@@ -145,6 +211,7 @@ def same_manager(got, want):
     same_array(got.slot_of(np.arange(want.n)), want.slot_of(np.arange(want.n)))
     assert got.rows.dtype == torch.int32 and got.rows.device.type == "cpu"
     same_array(got.rows.numpy(), np.asarray(want.rows))
+    lens_follow_rows(got)
     assert got.rebuilds == want.rebuilds
     assert got.max_width == want.max_width
     assert got.audit() == want.audit()
@@ -241,6 +308,61 @@ def test_rows_tensor_never_shares_memory_with_the_mirror():
     # a device row that drifts from the mirror is staleness
     port.rows[s, 0] += 1
     assert port.audit()[1] == 1
+    port.rows[s, 0] -= 1
+    # and so is a device length that drifts from the row's
+    assert port.audit()[1] == 0
+    port.lens[s] += 1
+    assert port.audit()[1] == 1
+    port.lens[s] -= 2
+    assert port.audit()[1] == 1
+
+
+@pytest.mark.parametrize("event",
+                         ["rebuild", "patch", "evict", "admit", "migrate"])
+def test_lens_follow_the_rows(event):
+    """``lens`` equals ``(rows < sentinel).sum(1)`` and ``widths`` after each
+    way the tier changes; a patch, an eviction and an admission write the
+    changed slots in place, and an evicted slot reads 0. Graph: hub 0 on
+    1-10, triangle 1-2-3, edge 4-5; six slots hold 0-5."""
+    edges = [(0, v) for v in range(1, 11)] + [(1, 2), (1, 3), (2, 3), (4, 5)]
+    store = DynamicCSR.from_csr(from_edges(np.array(edges), 12))
+    if event == "migrate":
+        from repro_torch.core.partition import partition_hub
+
+        rt = ShardedRuntime(store, 2, device="cpu",
+                            partition=partition_hub(store.degrees, 2))
+        rt.enable_device_tier(3, 16, scope="per_rank")
+        assert rt.migrate(np.array([0, 3, 12])) > 0
+        for k in range(2):
+            lens_follow_rows(rt.device_for(k))
+            assert rt.device_for(k).audit()[1] == 0
+        return
+    mgr = ResidencyManager(store, slots=6, max_width=16, device="cpu")
+    lens_follow_rows(mgr)
+    assert sorted(mgr.slot_ids.tolist()) == [0, 1, 2, 3, 4, 5]
+    before = mgr.lens
+    if event == "rebuild":
+        store.insert_edges(np.array([[6, 7], [6, 8], [7, 8]]))
+        mgr.rebuild()
+    elif event == "patch":
+        store.insert_edges(np.array([[1, 6]]))
+        mgr.notify_batch([1, 6])
+        assert mgr.stats.patches == 1 and mgr.stats.admits == 0
+    elif event == "evict":
+        slot4 = int(mgr.slot_of([4])[0])
+        store.delete_edges(np.array([[0, 4], [4, 5]]))
+        mgr.notify_batch([0, 4, 5])
+        assert mgr.stats.evicts == 1 and mgr.stats.admits == 0
+        assert mgr.slot_ids[slot4] == -1 and mgr.lens[slot4] == 0
+    else:
+        store.insert_edges(np.array([[6, 7], [6, 8]]))
+        mgr.notify_batch([6, 7, 8])
+        assert mgr.stats.admits == 1 and mgr.stats.evicts == 1
+        assert mgr.lens[mgr.slot_of([6])[0]] == 3
+    if event != "rebuild":
+        assert mgr.lens is before  # index_copy_ of the changed slots
+    lens_follow_rows(mgr)
+    assert mgr.audit()[1] == 0
 
 
 def test_manager_default_device_is_cuda():
@@ -275,13 +397,21 @@ def test_fetch_rows_consults_device_before_host_cache_match():
 
 
 @pytest.mark.parametrize("p", [1, 4])
-def test_streaming_oo_resident_route_matches(p):
+def test_streaming_oo_resident_route_matches(p, monkeypatch):
     g = ref_powerlaw_graph(96, 6, seed=60 + p)
     ref_rt = RefRuntime(None, p, n=g.n, device_slots=16)
     port_rt = ShardedRuntime(None, p, n=g.n, device_slots=16, device="cpu")
     ref = RefEngine(g, use_kernel=True, runtime=ref_rt, interpret=True)
     port = StreamingLCCEngine(CSRGraph.from_reference(g), use_kernel=True,
                               runtime=port_rt, device="cpu")
+    # every B3 call of the engine passes the tier's own lengths tensor
+    seen, call = [], incremental.resident_intersect_counts
+
+    def spy(*args, **kw):
+        seen.append(kw.get("lengths") is port_rt.device_for(0).lens)
+        return call(*args, **kw)
+
+    monkeypatch.setattr(incremental, "resident_intersect_counts", spy)
     rng = np.random.default_rng(61 + p)
     for _ in range(3):
         ins = rng.integers(0, g.n, size=(30, 2))
@@ -302,6 +432,7 @@ def test_streaming_oo_resident_route_matches(p):
         same_manager(port_rt.device, ref_rt.device)
     port.verify()
     assert port.oo_resident_pairs > 0
+    assert seen and all(seen)
 
 
 def test_residency_tensor_on_another_device_raises():

@@ -52,18 +52,55 @@ def test_intersect_count_kernel_on_card():
     assert ic.launches() == len(cases) + 1  # a refused call launches nothing
 
 
+def hub_rows(rng, widths, w, sentinel, universe):
+    """Sorted rows of the given widths drawn from ``[0, universe)``, padded
+    to ``w``: hub rows that share many ids."""
+    out = np.full((len(widths), w), sentinel, np.int32)
+    for i, k in enumerate(widths):
+        out[i, :k] = np.sort(rng.choice(universe, size=int(k), replace=False))
+    return out
+
+
 @pytest.mark.gpu
 def test_resident_intersect_kernel_on_card():
-    """B3, both variants, against its plain version bit for bit: ragged E,
-    zero-width query rows, evicted (all-sentinel) slots, S = 1; an
-    out-of-range slot raises before any launch."""
+    """B3, both variants, with the slot lengths given and
+    not given, against its plain version bit for bit: ragged E, zero-width
+    query rows, evicted (all-sentinel) slots, S = 1; hub rows (12,000 ids,
+    near 9,754, short) in runs of pairs that share slot_a (counted against a
+    bitmap of the run's row) and shuffled, with ids below 2^16 and 2^20 (no
+    bitmap). Launch counters counted per call; an out-of-range slot raises
+    before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
     from repro_torch.kernels import resident_intersect as ri
 
     rng = np.random.default_rng(4)
     ri.reset_launches()
-    n = 0
+    n = {"vs_rows": 0, "vs_slots": 0}
+
+    def t32(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).cuda()
+
+    def held(res_t, sa, rows, sb, sent, orders=(None,)):
+        lens_true = (res_t < sent).sum(1, dtype=torch.int32)
+        for lens in (None, lens_true):
+            want = ri.resident_intersect_ref(
+                res_t, t32(sa), None if rows is None else t32(rows),
+                slots_b=None if sb is None else t32(sb), lengths=lens,
+                sentinel=sent).cpu().numpy()
+            for perm in orders:
+                idx = slice(None) if perm is None else perm
+                got = ri.resident_intersect_counts(
+                    res_t, sa[idx], None if rows is None else rows[idx],
+                    slots_b=None if sb is None else sb[idx], lengths=lens,
+                    sentinel=sent)
+                assert got.dtype == np.int64
+                assert np.array_equal(got, want[idx]), (
+                    res_t.shape, sa.size, perm is None, lens is not None)
+                if sa.size:
+                    n["vs_rows" if sb is None else "vs_slots"] += 1
+                assert ri.launches() == n
+
     for s, w in [(64, 48), (1, 16), (300, 200)]:
         res = pad_sorted(rng, s, w, SENT)
         res[rng.integers(0, s)] = SENT  # an evicted slot
@@ -71,26 +108,27 @@ def test_resident_intersect_kernel_on_card():
         for e, wb in [(1, 4), (7, 0), (130, 32), (1000, 200)]:
             sa = rng.integers(0, s, e)
             sb = rng.integers(0, s, e)
-            rows = pad_sorted(rng, e, wb, SENT)
-            got = ri.resident_intersect_counts(res_t, sa, rows, sentinel=SENT)
-            want = ri.resident_intersect_ref(
-                res_t, torch.from_numpy(sa.astype(np.int32)).cuda(),
-                torch.from_numpy(rows).cuda(), sentinel=SENT)
-            assert got.dtype == np.int64
-            assert np.array_equal(got, want.cpu().numpy()), (s, w, e, wb)
-            got = ri.resident_intersect_counts(res_t, sa, slots_b=sb,
-                                               sentinel=SENT)
-            want = ri.resident_intersect_ref(
-                res_t, torch.from_numpy(sa.astype(np.int32)).cuda(),
-                slots_b=torch.from_numpy(sb.astype(np.int32)).cuda(),
-                sentinel=SENT)
-            assert np.array_equal(got, want.cpu().numpy()), (s, w, e)
-            n += 1
-    assert ri.launches() == {"vs_rows": n, "vs_slots": n}
+            held(res_t, sa, pad_sorted(rng, e, wb, SENT), None, SENT)
+            held(res_t, sa, None, sb, SENT)
+    # hub rows: 12,000 ids, near 9,754 or short; ids below 2^16 (the kernel
+    # counts runs against a bitmap) and below 2^20 (it searches)
+    widths = [12_000, 10_240, 10_241] + list(rng.integers(9_000, 9_755, 9))
+    widths += list(rng.integers(0, 201, 16)) + [0] * 4
+    for sent in (1 << 16, 1 << 20):
+        res_t = t32(hub_rows(rng, widths, 12_288, sent, 24_000))
+        s = res_t.shape[0]
+        sa = np.repeat(rng.integers(0, s, 40), rng.integers(1, 30, 40))[:800]
+        sb = rng.integers(0, s, sa.size)
+        sb[: sa.size // 2] = rng.integers(0, 12, sa.size // 2)  # hub x hub
+        shuffled = rng.permutation(sa.size)
+        held(res_t, sa, None, sb, sent, orders=(None, shuffled))
+        rows = hub_rows(rng, rng.choice(widths, 256), 12_288, sent, 24_000)
+        sa = np.repeat(rng.integers(0, s, 8), 32)
+        held(res_t, sa, rows, None, sent, orders=(None, rng.permutation(256)))
     with pytest.raises(ValueError, match="outside"):
-        ri.resident_intersect_counts(res_t, np.array([0, 300]),
-                                     slots_b=np.array([0, 0]), sentinel=SENT)
-    assert ri.launches() == {"vs_rows": n, "vs_slots": n}
+        ri.resident_intersect_counts(res_t, np.array([0, s]),
+                                     slots_b=np.array([0, 0]), sentinel=sent)
+    assert ri.launches() == n
 
 
 @pytest.mark.gpu

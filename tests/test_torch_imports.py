@@ -63,7 +63,8 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.kernels.point_query", "repro_torch.kernels.ref",
     "repro_torch.kernels.resident_intersect",
     "repro_torch.launch.lcc_run", "repro_torch.launch.serve",
-    "repro_torch.launch.stream_run",
+    "repro_torch.launch.stream_run", "repro_torch.launch.resident_timing",
+    "repro_torch.obs.timing",
     "repro_torch.configs.registry", "repro_torch.configs.shapes",
     "repro_torch.configs.gemma2_27b", "repro_torch.configs.qwen25_14b",
     "repro_torch.configs.stablelm_1_6b", "repro_torch.configs.din",
@@ -121,7 +122,8 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     from repro_torch.kernels.resident_intersect import (
         resident_intersect_counts,
     )
-    from repro_torch.launch import lcc_run, serve, stream_run, train
+    from repro_torch.launch import (lcc_run, resident_timing, serve,
+                                    stream_run, train)
     from repro_torch.streaming import DynamicCSR, StreamingLCCEngine
 
     if torch.cuda.is_available():
@@ -143,6 +145,7 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         lambda: serve.main(["--arch", "stablelm-1.6b", "--smoke"]),
         lambda: serve.main(["--arch", "din", "--smoke"]),
         lambda: train.main(["--arch", "gin-tu", "--steps", "1"]),
+        lambda: resident_timing.main(["--scale", "6"]),
         lambda: StreamingLCCEngine(g),
         lambda: ResidencyManager(DynamicCSR.from_csr(g), slots=4),
         lambda: ShardedRuntime(DynamicCSR.from_csr(g), 2, device_slots=4),
