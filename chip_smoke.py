@@ -30,7 +30,10 @@ JSON object on a line of its own:
            16, 2, 128] in bf16; each case asserts which kernel ran); B10
            (``embedding_bag``: the reference's test shapes, D = 18 / L =
            100, fp32/bf16/fp16 tables, sum and mean, an all-masked bag,
-           B = 333); B7 (``epoch_land`` and ``epoch_count``, every method,
+           B = 333, B = 1, the served [512, 100] with int32 and int64 ids,
+           L = 300, an Inf row under masked positions and ids out of range;
+           two calls equal bit for bit); B7 (``epoch_land`` and
+           ``epoch_count``, every method,
            on four hub problems with phantom slots pointed at real rows and
            on rounds 0, 16 and 31 of the S16 problem); B1
            (``intersect_count``); B3 (``resident_intersect``,
@@ -110,8 +113,11 @@ JSON object on a line of its own:
            the wgmma kernel, and for 2 s back to back with the card's clock
            and power sampled; ``F.scaled_dot_product_attention``,
            causal for global, a boolean causal-window mask for local), B10
-           at serve_bulk
-           (262,144 x 100 ids over the 10^8-row table; ``F.embedding_bag``),
+           (``launch/bag_timing.py``) at the served batch's [512, 100], at
+           serve_bulk (262,144 x 100 ids over the 10^8-row table), over
+           four serve_bulk batches in turn and with serve_bulk's ids
+           redrawn below 256 and over the whole table
+           (``F.embedding_bag`` at each),
            B9 at ogb_products' aggregations, [61,859,140 x 64] and x 100
            over 2,449,029 sorted segments (``zeros + index_add_``), held
            element by element against the plain output at both widths
@@ -845,38 +851,71 @@ def check_flash(dev, rng, np, torch):
 def check_bag(dev, rng, np, torch):
     """B10 vs its plain version: the reference's test shapes, D = 18 /
     L = 100, fp32/bf16/fp16 tables, sum and mean, an all-masked bag, B not
-    a multiple of 8. Returns (cases, max_abs_err, launches)."""
+    a multiple of 8, B = 1, the served batch's [512, 100] (a bag over 8
+    warps) with int32 and int64 ids, bags longer than one staged tile; at
+    [512, 100] an Inf row that only masked positions touch and ids out of
+    range, masked and not (NaN where the plain version has NaN). Every case
+    is called twice: the two outputs must be equal bit for bit. Returns
+    (cases, max_abs_err, launches)."""
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ops
 
-    plan = [(64, 16, 16, 4, "sum", torch.float32),
-            (128, 32, 8, 7, "mean", torch.float32),
-            (64, 8, 16, 3, "sum", torch.float16)]
+    plan = [(64, 16, 16, 4, "sum", torch.float32, torch.int32),
+            (128, 32, 8, 7, "mean", torch.float32, torch.int32),
+            (64, 8, 16, 3, "sum", torch.float16, torch.int32)]
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for mode in ("sum", "mean"):
-            plan.append((100_000, 18, 333, 100, mode, dtype))
+            plan.append((100_000, 18, 333, 100, mode, dtype, torch.int32))
+    for mode in ("sum", "mean"):
+        for id_dtype in (torch.int32, torch.int64):
+            plan.append((100_000, 18, 512, 100, mode, torch.float32,
+                         id_dtype))
+        plan.append((100_000, 18, 1, 100, mode, torch.float32, torch.int32))
+        plan.append((100_000, 18, 40, 300, mode, torch.float32, torch.int64))
+    plan += [(1000, 18, 512, 100, mode, torch.float32, id_dtype, "nan")
+             for mode in ("sum", "mean")
+             for id_dtype in (torch.int32, torch.int64)]
     cases, worst = [], 0.0
     eb.reset_launches()
-    for n, d, b, l, mode, dtype in plan:
+    for n, d, b, l, mode, dtype, id_dtype, *special in plan:
         table = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)
                                  ).to(dev, dtype)
-        ids = torch.from_numpy(rng.integers(0, n, (b, l), dtype=np.int32)
-                               ).to(dev)
+        low = 6 if special else 0  # rows 0-5 only where placed below
+        ids = torch.from_numpy(rng.integers(low, n, (b, l), dtype=np.int32)
+                               ).to(dev, id_dtype)
         mask = torch.from_numpy(rng.random((b, l)) < 0.8).to(dev)
-        mask[1] = False
+        nan_bags = []
+        if special:  # an Inf row under a mask; out of range, masked or not
+            table[5] = float("inf")
+            ids[2, 0], mask[2, 0] = n + 3, True
+            ids[3, 7], mask[3, 7] = -n - 1, False
+            ids[4, 9], mask[4, 9] = 5, False
+            nan_bags = [2, 3, 4]
+        if b > 1:
+            mask[1] = False
         got = ops.embedding_bag(table, ids, mask, mode=mode)
+        again = ops.embedding_bag(table, ids, mask, mode=mode)
         torch.cuda.synchronize()
         want = eb.embedding_bag_ref(table, ids, mask, mode=mode)
         if got.dtype != torch.float32 or got.shape != (b, d):
             raise RuntimeError(f"B10 output {got.dtype} {tuple(got.shape)}")
-        err = float((got - want).abs().max())
+        nan = torch.isnan(want)
+        err = float((got - want).abs()[~nan].max())
         worst = max(worst, err)
-        cases.append({"N": n, "D": d, "B": b, "L": l, "mode": mode,
-                      "dtype": str(dtype)[6:], "err": err,
-                      "all_masked_bag_is_0": not bool(got[1].any())})
-        if not (err <= BAG_TOL * (1 + float(want.abs().max()))
-                and cases[-1]["all_masked_bag_is_0"]):
-            raise RuntimeError(f"B10 {cases[-1]}: kernel != plain")
+        cases.append({
+            "N": n, "D": d, "B": b, "L": l, "mode": mode,
+            "dtype": str(dtype)[6:], "ids": str(id_dtype)[6:], "err": err,
+            "nan_bags": nan_bags,
+            "nan_where_plain_nan": bool(torch.equal(torch.isnan(got), nan)),
+            "same_bits_twice": bool(torch.equal(got.view(torch.int32),
+                                                again.view(torch.int32))),
+            "all_masked_bag_is_0": b == 1 or not bool(got[1].any())})
+        c = cases[-1]
+        if not (err <= BAG_TOL * (1 + float(want[~nan].abs().max()))
+                and c["nan_where_plain_nan"] and c["same_bits_twice"]
+                and c["all_masked_bag_is_0"]
+                and bool(nan.any(1).nonzero().flatten().tolist() == nan_bags)):
+            raise RuntimeError(f"B10 {c}: kernel != plain")
     return cases, worst, eb.launches()
 
 
@@ -1051,7 +1090,8 @@ def phase_serve_din(np, torch):
     """DIN at the full config through ``repro_torch.launch.serve`` (512
     requests), then ``bag_fixed`` on the served batch's history ids through
     B10, held against its plain version. Returns (phase record, B10
-    launches on the path, the item table for the timing)."""
+    launches on the path, the item table and the served batch's history ids
+    and mask for the timing)."""
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.launch import serve
     from repro_torch.models.recsys import din, embedding
@@ -1097,7 +1137,8 @@ def phase_serve_din(np, torch):
            "bag_fixed": {"ids": list(batch["hist_items"].shape),
                          "launches": b10_launches, "err": errs,
                          "tolerance": BAG_TOL}}
-    return rec, b10_launches, table
+    return rec, b10_launches, table, (batch["hist_items"],
+                                      batch["hist_mask"])
 
 
 def din_steady(run, din, tl, torch):
@@ -1203,41 +1244,6 @@ def time_flash(np, torch):
         "attn_mask = causal & window 4,096 (bool), K/V repeated to 32 heads "
         "first")
     return out
-
-
-def time_bag(table, np, torch):
-    """B10 at serve_bulk (262,144 DIN histories of 100 ids, the CTR
-    stream's Zipf ids) over the full 10^8-row item table: kernel, plain
-    version, bound (unique rows touched + ids + weights + output over
-    HBM), and ``F.embedding_bag(mode="sum", per_sample_weights=w)``."""
-    import torch.nn.functional as F
-
-    from repro_torch.data.recsys import CTRStream
-    from repro_torch.kernels import embedding_bag as eb
-    from repro_torch.kernels import ops
-
-    n, d = table.shape
-    b = CTRStream(n, 1_000_000, BULK_BAGS, seq_len=100, seed=1).batch_at(0)
-    ids = torch.from_numpy(b["hist_items"]).cuda()
-    mask = torch.from_numpy(b["hist_mask"]).cuda()
-    ms = min_ms(lambda: ops.embedding_bag(table, ids, mask), reps=10)
-    plain = cuda_ms(lambda: eb.embedding_bag_ref(table, ids, mask), reps=1)
-    got = ops.embedding_bag(table, ids, mask)
-    err = float((got - eb.embedding_bag_ref(table, ids, mask)).abs().max())
-    if not err <= BAG_TOL * (1 + float(got.abs().max())):
-        raise RuntimeError("timing: B10 kernel != plain")
-    w = mask.float()
-    ids64 = ids.long()  # F.embedding_bag is given int64 ids
-    lib = min_ms(lambda: F.embedding_bag(ids64, table, mode="sum",
-                                         per_sample_weights=w), reps=10)
-    unique = int(torch.unique(ids).numel())
-    nbytes = (unique * d * table.element_size() + ids.numel() * 4.0
-              + w.numel() * 4.0 + BULK_BAGS * d * 4.0)
-    bnd, by = bound_ms(nbytes, 0.0)
-    return {"shape": {"table": [n, d], "ids": list(ids.shape)},
-            "unique_rows": unique, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bytes": nbytes, "bound_ms": bnd,
-            "bound_by": by, "err": err}
 
 
 def check_segment_sum(dev, rng, np, torch):
@@ -1608,7 +1614,7 @@ def main() -> int:
     from repro_torch.kernels import epoch_count as ec
     from repro_torch.kernels import resident_intersect as ri
     from repro_torch.kernels.point_query import batched_pair_counts
-    from repro_torch.launch import lcc_run, resident_timing
+    from repro_torch.launch import bag_timing, lcc_run, resident_timing
     from repro_torch.obs.timing import cuda_ms, min_ms
 
     dev = torch.device("cuda", 0)
@@ -2184,15 +2190,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_rec, b8_launches = phase_serve_lm(np, torch)
     emit(lm_rec)
-    din_rec, b10_launches, item_table = phase_serve_din(np, torch)
+    din_rec, b10_launches, item_table, served = phase_serve_din(np, torch)
+    din_table_shape = tuple(item_table.shape)
     emit(din_rec)
 
     # ------------------------------------------- timing: B8 and B10 rows
     fl = time_flash(np, torch)
-    bag = time_bag(item_table, np, torch)
+    bag = bag_timing.time_shapes(item_table, served)  # B10's shapes
 
     # ---------- training: the serving tensors go first; counters to 0 in it
-    del item_table
+    del item_table, served
     gc.collect()
     torch.cuda.empty_cache()
     train_rec, b9_launches = phase_train_gnn(dev, np, torch)
@@ -2321,10 +2328,18 @@ def main() -> int:
         "path": "no model of the reference calls it: its path here is "
                 "bag_fixed on the served DIN batch's history ids",
         "launches": b10_launches,
-        "max_abs_err": max(bag_err, bag["err"]), "shape": bag["shape"],
-        "ms": bag["ms"], "plain_ms": bag["plain_ms"],
-        "bound_ms": bag["bound_ms"], "bound_by": bag["bound_by"],
-        "library_ms": bag["library_ms"]}, {
+        "max_abs_err": max(bag_err, bag["served"]["mean_err"],
+                           *(bag[k]["err"] for k in bag)),
+        "shape": {"table": list(din_table_shape),
+                  "ids": bag["serve_bulk"]["ids"]},
+        "ms": bag["serve_bulk"]["ms"],
+        "plain_ms": bag["serve_bulk"]["plain_ms"],
+        "bound_ms": bag["serve_bulk"]["bound_ms"],
+        "bound_by": bag["serve_bulk"]["bound_by"],
+        "library_ms": bag["serve_bulk"]["library_ms"],
+        "served": bag["served"], "rotating": bag["rotating"],
+        "ptxas": next(lib for lib in libraries
+                      if lib["name"] == "embedding_bag")}, {
         "name": "segment_sum_sorted", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/segment_sum_sorted.cu",
         "replaces": "src/repro/kernels/segment_sum_sorted.py:47",

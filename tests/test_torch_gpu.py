@@ -248,18 +248,32 @@ def test_flash_attention_kernel_on_card():
 def test_embedding_bag_kernel_on_card():
     """B10 against its plain version at 2e-3 (the reference's bag
     tolerance): fp32/bf16/fp16 tables, D = 18 and odd widths (every load
-    width), sum and mean, all-masked bags, B not a multiple of 8, ids out
-    of range (NaN, as in the reference's oracle)."""
+    width, rows wider than a warp, a table at an address only 4-byte
+    aligned), sum and mean, int32 and int64 ids, all-masked bags, B not a
+    multiple of 8, B = 1 and the served batch's [512, 100] (a bag spread
+    over 8 warps), bags longer than one staged tile; ids out of range give
+    NaN, masked or not, and so does an Inf row that only masked positions
+    touch (as in the reference's oracle). Two calls give the same bits and
+    one call is one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
     from repro_torch.kernels import embedding_bag as eb
+
+    def same(got, want):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        torch.testing.assert_close(torch.nan_to_num(got),
+                                   torch.nan_to_num(want), rtol=2e-3,
+                                   atol=2e-3)
 
     rng = np.random.default_rng(7)
     eb.reset_launches()
     n = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for nrows, d, b, l in [(1000, 18, 13, 100), (64, 16, 16, 4),
-                               (300, 7, 5, 33), (50, 130, 9, 3)]:
+                               (300, 7, 5, 33), (50, 130, 9, 3),
+                               (1000, 18, 512, 100), (1000, 18, 1, 100),
+                               (2000, 18, 40, 300), (100, 1, 70, 100)]:
             table = torch.from_numpy(rng.normal(size=(nrows, d)).astype(
                 np.float32)).to("cuda", dtype)
             ids = torch.from_numpy(rng.integers(0, nrows, size=(b, l)).astype(
@@ -267,16 +281,45 @@ def test_embedding_bag_kernel_on_card():
             mask = torch.from_numpy(rng.random((b, l)) < 0.7).cuda()
             mask[0] = False
             for mode in ("sum", "mean"):
-                got = ops.embedding_bag(table, ids, mask, mode=mode)
-                torch.cuda.synchronize()
-                want = eb.embedding_bag_ref(table, ids, mask, mode=mode)
-                assert got.dtype == torch.float32 and got.shape == (b, d)
-                torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
-                assert not got[0].any()
-                n += 1
-    ids[1, 0] = nrows + 3
-    got = ops.embedding_bag(table, ids, mask)
-    assert torch.isnan(got[1]).all() and not torch.isnan(got[2]).any()
+                for id_t in (ids, ids.long()):
+                    got = ops.embedding_bag(table, id_t, mask, mode=mode)
+                    torch.cuda.synchronize()
+                    same(got, eb.embedding_bag_ref(table, ids, mask,
+                                                   mode=mode))
+                    assert not got[0].any()
+                    n += 1
+    # a table 4-byte aligned only: 4-byte loads of 72-byte rows
+    flat = torch.from_numpy(rng.normal(size=1000 * 18 + 1).astype(
+        np.float32)).cuda()
+    table = flat[1:].view(1000, 18)
+    ids = torch.from_numpy(rng.integers(-1000, 1000, size=(37, 100)).astype(
+        np.int32)).cuda()
+    mask = torch.from_numpy(rng.random((37, 100)) < 0.5).cuda()
+    same(ops.embedding_bag(table, ids, mask, mode="mean"),
+         eb.embedding_bag_ref(table, ids, mask, mode="mean"))
+    n += 1
+    # out of range (masked or not) and an Inf row under masked positions
+    table = torch.from_numpy(rng.normal(size=(1000, 18)).astype(
+        np.float32)).cuda()
+    table[5] = float("inf")
+    ids = torch.from_numpy(rng.integers(6, 1000, size=(512, 100)).astype(
+        np.int32)).cuda()
+    mask = torch.from_numpy(rng.random((512, 100)) < 0.5).cuda()
+    ids[1, 0], mask[1, 0] = 1000 + 3, True
+    ids[2, 7], mask[2, 7] = -1000 - 1, False
+    ids[3, 9], mask[3, 9] = 5, False
+    for mode in ("sum", "mean"):
+        for id_t in (ids, ids.long()):
+            got = ops.embedding_bag(table, id_t, mask, mode=mode)
+            again = ops.embedding_bag(table, id_t, mask, mode=mode)
+            want = eb.embedding_bag_ref(table, ids, mask, mode=mode)
+            n += 2
+            same(got, want)
+            assert torch.isnan(got[1:4]).all()
+            assert not torch.isnan(got[4:]).any()
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert eb.launches() == n
+    ops.embedding_bag(table, ids, mask)
     assert eb.launches() == n + 1
 
 
