@@ -8,10 +8,11 @@ Needs one CUDA device, ``nvcc`` and nothing else; it imports ``torch`` and
 builds every hand-written kernel from the sources in this checkout (one
 ``nvcc`` per source, started together), holds each against its plain torch
 version on the card (integers: bit for bit, tolerance 0; floats at the
-stated tolerances), drives the port's four paths — the paper's LCC
-pipeline, the streaming path with the device tier, serving (gemma2-27b
-prefill + decode, DIN scoring) and GNN training (gin-tu at ogb_products'
-size) — through their public entry points, and fails (non-zero exit) if any
+stated tolerances), drives the port's paths — the paper's LCC
+pipeline, the streaming path with the device tier, online graph query
+serving with its traffic plane, serving (gemma2-27b prefill + decode, DIN
+scoring) and GNN training (gin-tu at ogb_products' size) — through their
+public entry points, and fails (non-zero exit) if any
 phase fails. Each phase prints one
 JSON object on a line of its own:
 
@@ -36,7 +37,8 @@ JSON object on a line of its own:
            ``epoch_count``, every method,
            on four hub problems with phantom slots pointed at real rows and
            on rounds 0, 16 and 31 of the S16 problem); B1
-           (``intersect_count``); B3 (``resident_intersect``,
+           (``intersect_count``; E down to 1 at widths up to 16,384, the
+           serving path's widest buckets); B3 (``resident_intersect``,
            both variants, slot lengths given (true, cut or
            overlong) and not given, E in {0,1,7,64,130,1000}, WB in
            {0,4,32,200}, evicted slots, S = 1 and 4,096; a hub residency
@@ -66,6 +68,24 @@ JSON object on a line of its own:
            ``stream_run.build_engine`` from the launcher's flags, with and
            without ``--no-kernel``: bit-equal after every batch, both
            verified
+  query_serve  the serving and traffic planes
+           (``repro_torch.launch.query_serve``): (a) ``main`` at R-MAT
+           scale 12 / edge factor 16, p = 8, 2,048 Zipf queries, 20% write
+           events, device tier of 1,024 slots, ``--verify`` (every answer
+           against a recount of its snapshot); (b) the same graph with
+           ``--ranks 8 --verify`` (1,024 queries), then open-loop Poisson
+           arrivals at half (a)'s in-engine q/s with ``--slo --tenants 3
+           --ewma-scores --verify`` (1,024 queries); (c) scale 16, 1,024
+           queries, window 64, 4,096 tier slots, driven through the
+           launcher's ``build_service`` and ``closed_loop``, every answer
+           checked against the stream engine's ``t`` / ``lcc``, the
+           store's rows and a ``lexsort`` of ``lcc``, the widest B1 and B3
+           calls held against their plain versions, q/s, latency, hit
+           rates and launches per microbatch; 256 further queries on the
+           same service under ``torch.profiler`` (device ms, idle share);
+           ``svc.verify()``; (d) scale 14, 1,024 queries, the kernel route
+           against the plain route (``use_kernel=False``): answers, stream
+           state, provider and tier stats and pair counters bit for bit
   serve_lm ``repro_torch.launch.serve.main`` on gemma2-27b at full width
            and depth (46 layers, ~55 GB of bf16 weights; the graph phases'
            device tensors are freed first): the launcher's default 32-token
@@ -125,7 +145,8 @@ JSON object on a line of its own:
 then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``. The launch counts in the summary are read
 from the wrappers' counters, set to 0 just before each path (``entry``
-through ``pairs``; ``stream``; ``stream_routes``; the 8,192-token
+through ``pairs``; ``stream``; ``stream_routes``; each run of
+``query_serve``; the 8,192-token
 ``serve_lm`` run; ``serve_din``; each launcher run and each cell's kernel
 route in ``train_gnn``) and read just after it; launches made by
 ``checks`` and ``timing`` are not in them, except for B2, whose only path is
@@ -162,6 +183,34 @@ ROUTES_ARGV = ["--scale", "12", "--edge-factor", "16", "--batches", "8",
                "--device-tier", "--device-scope", "per_rank",
                "--device-slots", "256", "--device-width", "256",
                "--partition", "hub", "--rebalance", "--maintain-schedule"]
+# the serving and traffic planes (launch/query_serve.py): (a) the verified
+# run at S12; (b) cross-rank and open loop on its graph, with fewer
+# queries (each --verify event recounts the whole snapshot on the host);
+# (c) the static cell's graph, timed, then a profiled continuation; (d)
+# both routes at S14. Depth is cut to the time limit: (c) served 9.43 q/s
+# on an H100 (host-bound: 434 s for 4,096 queries, PERF.md), so it takes
+# 1,024 here; (d) 1,024 queries.
+# B1's checks at the serving path's widest buckets: wa, wb up to
+# pow2_ceil of the S16 graph's max degree (9,754), E down to 1
+SERVING_WIDE_B1 = ((1, 16384, 16384), (1, 16384, 1), (5, 1, 16384),
+                   (64, 16384, 2048), (3, 8192, 16384))
+QS_VERIFY_ARGV = ["--scale", "12", "--edge-factor", "16", "--p", "8",
+                  "--queries", "2048", "--workload", "zipf",
+                  "--write-frac", "0.2", "--device-tier",
+                  "--device-slots", "1024", "--verify"]
+QS_RANKS_QUERIES = 1024
+QS_OPEN_FLAGS = ["--open-loop", "poisson", "--slo", "--tenants", "3",
+                 "--ewma-scores", "--queries", "1024"]
+QS_TIMED_ARGV = ["--scale", "16", "--edge-factor", "16", "--p", "8",
+                 "--workload", "zipf", "--write-frac", "0.2",
+                 "--batch-window", "64", "--device-tier",
+                 "--device-slots", "4096"]
+QS_TIMED_QUERIES = 1024
+QS_PROFILED_QUERIES = 256
+QS_ROUTES_ARGV = ["--scale", "14", "--edge-factor", "16", "--p", "8",
+                  "--queries", "1024", "--workload", "zipf",
+                  "--write-frac", "0.2", "--device-tier",
+                  "--device-slots", "4096"]
 VS_SLOTS_PLAIN_PAIRS = 2048  # the all-pairs plain version costs ~W^2/pair
 BITMAP_PAIRS = 65_536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1591,6 +1640,363 @@ def time_segment_sum(dev, np, torch):
     return out
 
 
+class ServeRecorder:
+    """Wraps the serving engine's two kernel entry points (B1 behind
+    ``batched_pair_counts``, B3 in the engine): counts calls and pairs,
+    the width buckets B1 is called at, and keeps the inputs of the widest
+    call of each (whose all-pairs plain version stays under 2^38
+    compares) to hold the kernel against its plain version at the path's
+    own shapes afterwards. Launch counters stay in the wrappers."""
+
+    PLAIN_COMPARES = float(1 << 38)
+
+    def __init__(self, point_query, engine):
+        self.mods = {"b1": (point_query, "delta_intersect_counts"),
+                     "b3": (engine, "resident_intersect_counts")}
+        self.orig = {k: getattr(m, n) for k, (m, n) in self.mods.items()}
+        self.calls = {"b1": 0, "b3": 0}
+        self.pairs = {"b1": 0, "b3": 0}
+        self.buckets = {}  # (wa, wb) of B1 -> calls
+        self.widest = {}
+
+    def _keep(self, route, e, wa, wb, args):
+        if e * wa * wb > self.PLAIN_COMPARES:
+            return
+        if wa * wb > self.widest.get(route, (0,))[0]:
+            self.widest[route] = (wa * wb, args())
+
+    def __enter__(self):
+        def b1(rows_a, rows_b, **kw):
+            out = self.orig["b1"](rows_a, rows_b, **kw)
+            e, wa, wb = rows_a.shape[0], rows_a.shape[1], rows_b.shape[1]
+            self.calls["b1"] += 1
+            self.pairs["b1"] += e
+            key = f"{wa}x{wb}"
+            self.buckets[key] = self.buckets.get(key, 0) + 1
+            self._keep("b1", e, wa, wb, lambda: (
+                rows_a.copy(), rows_b.copy(), kw["sentinel"], out))
+            return out
+
+        def b3(residency, slots_a, rows_b=None, **kw):
+            out = self.orig["b3"](residency, slots_a, rows_b, **kw)
+            self.calls["b3"] += 1
+            self.pairs["b3"] += len(slots_a)
+            self._keep("b3", len(slots_a), residency.shape[1],
+                       rows_b.shape[1], lambda: (
+                           residency.clone(), slots_a.copy(), rows_b.copy(),
+                           kw["lengths"].clone(), kw["sentinel"], out))
+            return out
+
+        for k, fn in (("b1", b1), ("b3", b3)):
+            mod, name = self.mods[k]
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for k, (mod, name) in self.mods.items():
+            setattr(mod, name, self.orig[k])
+
+    def recheck(self, dev, np, torch):
+        """The widest call of each kernel, again: kernel vs plain version
+        on the same inputs. Returns ({kernel: shape}, max_abs_err)."""
+        from repro_torch.kernels import intersect_count as ic
+        from repro_torch.kernels import resident_intersect as ri
+        from repro_torch.kernels.delta_intersect import delta_intersect_counts
+
+        shapes, worst = {}, 0
+        _, (a, b, sent, got) = self.widest["b1"]
+        want = ic.intersect_count_ref(torch.from_numpy(a).to(dev),
+                                      torch.from_numpy(b).to(dev),
+                                      sentinel=sent).cpu().numpy()
+        again = delta_intersect_counts(a, b, sentinel=sent, device=dev)
+        err = int(max(np.abs(got - want).max(), np.abs(again - want).max()))
+        worst = max(worst, err)
+        shapes["intersect_count"] = {"shape": [a.shape[0], a.shape[1],
+                                               b.shape[1]], "err": err}
+        _, (res, sa, rb, lens, sent, got) = self.widest["b3"]
+        want = ri.resident_intersect_ref(
+            res, torch.from_numpy(sa.astype(np.int32)).to(dev),
+            torch.from_numpy(rb).to(dev), lengths=lens,
+            sentinel=sent).cpu().numpy()
+        again = ri.resident_intersect_counts(res, sa, rb, lengths=lens,
+                                             sentinel=sent, device=dev)
+        err_b3 = int(max(np.abs(got - want).max(),
+                         np.abs(again - want).max()))
+        worst = max(worst, err_b3)
+        shapes["resident_intersect"] = {
+            "residency": list(res.shape), "E": int(sa.shape[0]),
+            "WB": int(rb.shape[1]), "err": err_b3}
+        if worst:
+            raise RuntimeError(f"query_serve: kernel != plain version at the "
+                               f"path's widest call {shapes}")
+        return shapes, worst
+
+
+def run_launcher(main_fn, argv, result):
+    """``main_fn(argv, result=result)`` with its printed lines captured
+    (and echoed); fails unless it returns 0. Returns the lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv, result=result)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv)}: returned {rc}")
+    return text.splitlines()
+
+
+def served_summary(res, lines):
+    """The launcher run's numbers: served, q/s, latency, its verify line."""
+    lat = res["latency"]
+    out = {"served": res["served"], "wall_s": res["wall_s"],
+           "qps_end_to_end": res["served"] / res["wall_s"],
+           "qps_in_engine": lat.throughput_qps, "p50_ms": lat.p50_ms,
+           "p99_ms": lat.p99_ms, "max_ms": lat.max_ms}
+    want = (f"verified: {res['served']} point queries bit-exact vs "
+            "recount, 0 stale cached rows")
+    if want not in lines:
+        raise RuntimeError(f"query_serve: no {want!r} line in {lines}")
+    out["verified"] = want
+    return out
+
+
+class AnswerCheck:
+    """Every answer of the timed run against state computed another way
+    than the engine's pair counts, before the next event mutates it:
+    TRIANGLES / LCC against the stream engine's incrementally maintained
+    ``t`` / ``lcc``, COMMON_NEIGHBORS against ``np.intersect1d`` of the
+    store's rows, TOP_K_LCC against a ``lexsort`` of ``lcc``."""
+
+    def __init__(self, svc, np):
+        self.svc, self.np = svc, np
+        self.by_kind = {}
+        self.seconds = 0.0
+
+    def __call__(self, results):
+        np, svc = self.np, self.svc
+        t0 = time.perf_counter()
+        t, lcc, store = svc.stream.t, svc.stream.lcc, svc.store
+        order = None
+        for r in results:
+            q = r.query
+            kind = q.kind.name
+            if kind == "TRIANGLES":
+                ok = type(r.value) is int and r.value == int(t[q.u])
+            elif kind == "LCC":
+                ok = r.value == lcc[q.u]
+            elif kind == "COMMON_NEIGHBORS":
+                want = np.intersect1d(store.row(q.u), store.row(q.v))
+                ok = r.value == want.size and np.array_equal(r.ids, want)
+            else:
+                if order is None:
+                    order = np.lexsort((np.arange(lcc.size), -lcc))
+                top = order[: q.k]
+                ok = (np.array_equal(r.ids, top)
+                      and np.array_equal(r.values, lcc[top]))
+            if not ok:
+                raise RuntimeError(f"query_serve: wrong answer {q} -> "
+                                   f"{r.value}")
+            self.by_kind[kind] = self.by_kind.get(kind, 0) + 1
+        self.seconds += time.perf_counter() - t0
+
+
+def answers_of(results, np):
+    """Results as plain data, for comparing two routes bit for bit."""
+    return [(q.kind.name, q.u, q.v, q.k, type(r.value).__name__, r.value,
+             None if r.ids is None else (r.ids.dtype.str, r.ids.tolist()),
+             None if r.values is None else (r.values.dtype.str,
+                                            r.values.tolist()))
+            for r in results for q in (r.query,)]
+
+
+def phase_query_serve(dev, np, torch):
+    """The serving and traffic planes (``launch/query_serve.py``) on the
+    card: (a) the launcher at S12 with ``--verify``; (b) the same graph
+    with ``--ranks 8 --verify``, then open-loop Poisson arrivals at half
+    (a)'s in-engine rate with SLO classes, 3 tenants and live scores;
+    (c) the S16 graph timed through the launcher's own ``build_service``
+    and ``closed_loop``, every answer checked against state computed
+    another way, a profiled continuation for the device split, then
+    ``svc.verify()``; (d) the kernel route against the plain route at
+    S14, bit for bit. Returns (phase record, {kernel: launches})."""
+    import dataclasses as dc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import intersect_count as ic
+    from repro_torch.kernels import point_query
+    from repro_torch.kernels import resident_intersect as ri
+    from repro_torch.launch import query_serve
+    from repro_torch.serving import engine as serving_engine
+
+    rec = {"phase": "query_serve"}
+    launches = {}
+
+    def counted(tag, fn):
+        ic.reset_launches()
+        ri.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[tag] = {"intersect_count": ic.launches(),
+                         "resident_intersect": ri.launches()}
+        return out
+
+    def serve(tag, argv):
+        res = {}
+        t0 = time.perf_counter()
+        lines = counted(tag, lambda: run_launcher(
+            query_serve.main, argv + ["--device", "cuda"], res))
+        out = served_summary(res, lines)
+        out.update(argv=" ".join(argv), seconds=time.perf_counter() - t0,
+                   launches=launches[tag])
+        return out, res, lines
+
+    # (a) verified run
+    rec["verified"], res_a, _ = serve("verified", QS_VERIFY_ARGV)
+    del res_a
+    # (b) cross-rank, then the traffic plane open loop at half (a)'s rate
+    rec["ranks"], _, _ = serve("ranks", QS_VERIFY_ARGV + [
+        "--ranks", "8", "--queries", str(QS_RANKS_QUERIES)])
+    rate = 0.5 * rec["verified"]["qps_in_engine"]
+    rec["open_loop"], _, lines = serve(
+        "open_loop", QS_VERIFY_ARGV + QS_OPEN_FLAGS + ["--rate", f"{rate:.1f}"])
+    for head in ("open-loop[poisson]", "slo: hit rate", "tenants[3]",
+                 "  cache shares:", "ewma scores:"):
+        hit = [ln for ln in lines if ln.startswith(head)]
+        if not hit:
+            raise RuntimeError(f"query_serve: open loop printed no {head!r}")
+        rec["open_loop"][head.strip().split(":")[0].split("[")[0]] = hit[0]
+
+    # (c) the static cell's graph, timed
+    timed_argv = QS_TIMED_ARGV + ["--queries", str(QS_TIMED_QUERIES)]
+    args = query_serve.parse_args(timed_argv + ["--device", "cuda"])
+    t0 = time.perf_counter()
+    w = query_serve.build_service(args, dev)
+    svc = w.svc
+    build_s = time.perf_counter() - t0
+    check = AnswerCheck(svc, np)
+    with ServeRecorder(point_query, serving_engine) as srec:
+        t0 = time.perf_counter()
+        served, n_updates = counted("timed", lambda: query_serve.closed_loop(
+            args, svc, rebalancer=w.rebalancer, on_results=check))
+        wall = time.perf_counter() - t0 - check.seconds
+    lat = svc.scheduler.latency_summary()
+    n_batches = svc.scheduler.n_batches
+    if served < args.queries or sum(check.by_kind.values()) != served:
+        raise RuntimeError(f"query_serve: {served} served, "
+                           f"{check.by_kind} checked of {args.queries}")
+    recheck, recheck_err = srec.recheck(dev, np, torch)
+    tl = launches["timed"]
+    timed = {
+        "argv": " ".join(timed_argv), "build_s": build_s,
+        "served": served, "updates": n_updates,
+        "checked": dict(check.by_kind),
+        "check_s": check.seconds, "wall_s": wall,
+        "qps_end_to_end": served / wall, "qps_in_engine": lat.throughput_qps,
+        "p50_ms": lat.p50_ms, "p90_ms": lat.p90_ms, "p99_ms": lat.p99_ms,
+        "max_ms": lat.max_ms, "microbatches": n_batches,
+        "provider_hit_rate": svc.provider.stats.hit_rate,
+        "tier_hit_rate": svc.runtime.merged_device_stats().hit_rate,
+        "host_pack_bytes": svc.engine.host_pack_bytes,
+        "pairs": {"raw": svc.engine.n_pairs_raw,
+                  "intersected": svc.engine.n_pairs_total,
+                  "resident": svc.engine.n_pairs_resident},
+        "launches": tl,
+        "launches_note": "the counters' totals include the stream engine's "
+                         "launches on the update events; engine_calls are "
+                         "the query engine's own (one launch a call)",
+        "b1_launches_per_microbatch": srec.calls["b1"] / n_batches,
+        "b3_launches_per_microbatch": srec.calls["b3"] / n_batches,
+        "engine_calls": srec.calls, "engine_pairs": srec.pairs,
+        "b1_buckets": srec.buckets, "widest_calls_vs_plain": recheck}
+    if tl["intersect_count"] <= 0 or tl["resident_intersect"]["vs_rows"] <= 0:
+        raise RuntimeError(f"query_serve: B1 or B3 never launched {tl}")
+    # the same service, profiled over further queries: device split
+    args_p = type(args)(**{**vars(args), "queries": QS_PROFILED_QUERIES,
+                           "seed": args.seed + 1})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        served_p, _ = counted("profiled", lambda: query_serve.closed_loop(
+            args_p, svc, on_results=check))
+        prof_s = time.perf_counter() - t0
+    rows = kernel_rows(prof, torch)
+    by_kernel = {k: sum(r["device_ms"] for r in rows if k in r["name"])
+                 for k in ("intersect_count_kernel",
+                           "resident_intersect_kernel")}
+    busy_ms = sum(r["device_ms"] for r in rows)
+    if busy_ms > prof_s * 1e3:
+        raise RuntimeError(f"query_serve: device busy {busy_ms} ms exceeds "
+                           f"the profiled window {prof_s * 1e3} ms")
+    timed["profiled"] = {
+        "queries": served_p, "checked": sum(check.by_kind.values()) - served,
+        "seconds": prof_s, "device_ms": {
+            "busy": busy_ms, **by_kernel},
+        "idle_share": 1.0 - busy_ms / (prof_s * 1e3),
+        "launches": launches["profiled"], "top_device_kernels": rows[:8]}
+    del prof
+    t0 = time.perf_counter()
+    svc.verify()  # the stream bit-exact vs a recount, no stale cached row
+    timed["verify_s"] = time.perf_counter() - t0
+    timed["triangles"] = svc.triangle_count
+    rec["timed"] = timed
+    del svc, w, srec, check
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the kernel route against the plain route, bit for bit
+    args_d = query_serve.parse_args(QS_ROUTES_ARGV + ["--device", "cuda"])
+    routes = {}
+    for name, use_kernel in (("kernel", None), ("plain", False)):
+        w = query_serve.build_service(args_d, dev, use_kernel=use_kernel)
+        svc = w.svc
+        answers = []
+        t0 = time.perf_counter()
+        counted(name, lambda: query_serve.closed_loop(
+            args_d, svc, on_results=lambda r: answers.extend(
+                answers_of(r, np))))
+        eng = svc.engine
+        routes[name] = {
+            "seconds": time.perf_counter() - t0, "answers": answers,
+            "t": svc.stream.t.tolist(), "lcc": svc.stream.lcc.tolist(),
+            "provider": dc.asdict(svc.provider.stats),
+            "tier": dc.asdict(svc.runtime.merged_device_stats()),
+            "pairs": [eng.n_pairs_raw, eng.n_pairs_total,
+                      eng.n_pairs_resident, eng.host_pack_bytes]}
+        if name == "kernel":
+            svc.verify()
+        del svc, w
+    k_r, p_r = routes["kernel"], routes["plain"]
+    for key in ("answers", "t", "lcc", "provider", "tier", "pairs"):
+        if k_r[key] != p_r[key]:
+            raise RuntimeError(f"query_serve: kernel route != plain route "
+                               f"in {key}")
+    kl, pl = launches["kernel"], launches["plain"]
+    if kl["intersect_count"] <= 0 or kl["resident_intersect"]["vs_rows"] <= 0:
+        raise RuntimeError(f"query_serve: kernel route launched {kl}")
+    if pl["intersect_count"] or any(pl["resident_intersect"].values()):
+        raise RuntimeError(f"query_serve: plain route launched {pl}")
+    rec["routes"] = {
+        "argv": " ".join(QS_ROUTES_ARGV), "queries": len(k_r["answers"]),
+        "kernel_route_equals_plain_route": True,
+        "seconds": {"kernel": k_r["seconds"], "plain": p_r["seconds"]},
+        "pairs": k_r["pairs"], "launches": kl}
+    path = {"intersect_count": 0, "resident_intersect": {}}
+    for tag in ("verified", "ranks", "open_loop", "timed", "profiled",
+                "kernel"):
+        path["intersect_count"] += launches[tag]["intersect_count"]
+        for k, n in launches[tag]["resident_intersect"].items():
+            path["resident_intersect"][k] = \
+                path["resident_intersect"].get(k, 0) + n
+    rec["launches"] = launches
+    rec["max_abs_err"] = recheck_err
+    return rec, path
+
+
 def main() -> int:
     # the timing statistic of every kernel time, shared with the package
     global cuda_ms, min_ms
@@ -1712,6 +2118,12 @@ def main() -> int:
     check("all_sentinel_b", some_b, full_a, small_sent)
     check("all_sentinel_both", full_a, full_a, small_sent)
     check("self", some_b, some_b, small_sent)
+    # the serving path's widest buckets
+    wide_sent = 1 << 16
+    for e, wa, wb in SERVING_WIDE_B1:
+        a = torch.from_numpy(pad_sorted(rng, e, wa, wide_sent, np)).to(dev)
+        b = torch.from_numpy(pad_sorted(rng, e, wb, wide_sent, np)).to(dev)
+        check("serving_wide", a, b, wide_sent)
     # wide: 512 directed edges of the full-size graph whose endpoints have
     # the highest degree sums, at the engine's width
     src, dst = csr.edge_list()
@@ -2048,6 +2460,10 @@ def main() -> int:
           "kernel_launches": routes_launches})
     del engines, k_eng, p_eng
 
+    # ------------------------------------------------------- query_serve
+    qs_rec, qs_launches = phase_query_serve(dev, np, torch)
+    emit(qs_rec)
+
     # ------------------------------------------------------------- timing
     # round 0 of the full-size schedule, all ranks, in the engine's slabs
     e_chunk = prob.e_max // prob.n_rounds
@@ -2218,12 +2634,17 @@ def main() -> int:
         "name": "intersect_count", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/intersect_count.cu",
         "replaces": "src/repro/kernels/intersect_count.py:49",
-        "launches": main_path_launches + stream_launches["intersect_count"],
+        "launches": (main_path_launches + stream_launches["intersect_count"]
+                     + qs_launches["intersect_count"]),
         "launches_entry": entry_launches, "launches_full": full_b1,
         "launches_pairs": pairs_launches,
         "launches_stream": stream_launches["intersect_count"],
         "launches_stream_routes": routes_launches["intersect_count"],
-        "max_abs_err": max_abs_err, "tolerance": 0,
+        "launches_query_serve": qs_launches["intersect_count"],
+        "query_serve_device_ms": qs_rec["timed"]["profiled"]["device_ms"][
+            "intersect_count_kernel"],
+        "max_abs_err": max(max_abs_err, qs_rec["max_abs_err"]),
+        "tolerance": 0,
         "shape": [e_t, w, w],
         "ms": min(kernel_ms, kernel_ms_again), "plain_ms": plain_ms,
         "count_bsearch_torch_ms": bsearch_ms,
@@ -2273,10 +2694,15 @@ def main() -> int:
         "name": "resident_intersect", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/resident_intersect.cu",
         "replaces": "src/repro/kernels/resident_intersect.py:109",
-        "launches": sum(b3_stream.values()),
+        "launches": (sum(b3_stream.values())
+                     + sum(qs_launches["resident_intersect"].values())),
         "launches_stream": b3_stream,
         "launches_stream_routes": routes_launches["resident_intersect"],
-        "max_abs_err": max(res_err, stream_err), "tolerance": 0,
+        "launches_query_serve": qs_launches["resident_intersect"],
+        "query_serve_device_ms": qs_rec["timed"]["profiled"]["device_ms"][
+            "resident_intersect_kernel"],
+        "max_abs_err": max(res_err, stream_err, qs_rec["max_abs_err"]),
+        "tolerance": 0,
         "shape": vs_rows["shape"], "ms": vs_rows["ms"],
         "plain_ms": vs_rows["plain_ms"], "bound_ms": vs_rows["bound_ms"],
         "bound_by": vs_rows["bound_by"], "library_ms": None,

@@ -254,7 +254,7 @@ def main(argv=None, result: Optional[dict] = None):
     if args.spmd:
         raise NotImplementedError(
             "not ported yet: --spmd needs distributed/spmd_runtime.py "
-            "(ROADMAP Queue A item 9)"
+            "(ROADMAP Queue A item 2, the SPMD plane)"
         )
     from ..device import resolve_device
 

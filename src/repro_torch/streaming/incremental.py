@@ -110,7 +110,8 @@ class StreamingLCCEngine:
         if execution == "spmd" or pipeline:
             raise NotImplementedError(
                 "not ported yet: execution='spmd' / pipeline=True need "
-                "distributed/spmd_runtime.py (ROADMAP Queue A item 9)"
+                "distributed/spmd_runtime.py (ROADMAP Queue A item 2, the "
+                "SPMD plane)"
             )
         self.device = resolve_device(device)
         self.store = DynamicCSR.from_csr(

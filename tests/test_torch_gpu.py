@@ -474,3 +474,52 @@ def test_epoch_on_card_matches_triangles(p):
         assert np.array_equal(got, want), method
         t_e, _ = async_engine.lcc_pipelined(prob, "cuda", method=method)
         assert np.array_equal(t_e, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cross_rank", [False, True])
+def test_query_service_on_card_matches_plain_route(cross_rank):
+    """The query service at R-MAT S10 with the device tier, on the card
+    (B1 and B3) against the plain route on the same seed: every answer,
+    the stream's state, the provider and residency ledgers and the engine
+    counters equal, bit for bit; both B1 and B3 launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.graphs.rmat import rmat_graph
+    from repro_torch.kernels import resident_intersect as ri
+    from repro_torch.serving import LiveQueryService, read_write_stream
+
+    csr = rmat_graph(10, 16, seed=0)
+
+    def run(use_kernel):
+        svc = LiveQueryService(
+            csr, p=4, cross_rank=cross_rank, max_batch=64, device_slots=64,
+            use_kernel=use_kernel, device="cuda")
+        answers = []
+        for ev in read_write_stream(lambda: svc.store.degrees, csr.n, 24,
+                                    write_frac=0.25, queries_per_event=64,
+                                    seed=1):
+            if ev.is_update:
+                svc.apply_updates(ev.update)
+                continue
+            for r in svc.scheduler.run(ev.queries):
+                ids = None if r.ids is None else r.ids.tolist()
+                vals = None if r.values is None else r.values.tolist()
+                answers.append((r.query, type(r.value), r.value, ids, vals))
+        svc.verify()
+        eng = svc.engine
+        return {
+            "answers": answers, "t": svc.stream.t.tolist(),
+            "lcc": svc.stream.lcc.tolist(),
+            "stats": [vars(st) for st in svc.runtime.stats],
+            "device": vars(svc.runtime.merged_device_stats()),
+            "pairs": (eng.n_pairs_raw, eng.n_pairs_total,
+                      eng.n_pairs_resident, eng.host_pack_bytes),
+        }
+
+    ic.reset_launches()
+    ri.reset_launches()
+    kernel = run(None)  # the default on a CUDA device: the kernel route
+    assert ic.launches() > 0 and ri.launches("vs_rows") > 0
+    assert kernel["pairs"][2] > 0
+    assert kernel == run(False)

@@ -64,6 +64,7 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.kernels.resident_intersect",
     "repro_torch.launch.lcc_run", "repro_torch.launch.serve",
     "repro_torch.launch.stream_run", "repro_torch.launch.resident_timing",
+    "repro_torch.launch.query_serve",
     "repro_torch.obs.timing",
     "repro_torch.configs.registry", "repro_torch.configs.shapes",
     "repro_torch.configs.gemma2_27b", "repro_torch.configs.qwen25_14b",
@@ -88,6 +89,14 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.streaming", "repro_torch.streaming.coherence",
     "repro_torch.streaming.incremental", "repro_torch.streaming.store",
     "repro_torch.streaming.updates",
+    "repro_torch.serving", "repro_torch.serving.requests",
+    "repro_torch.serving.metrics", "repro_torch.serving.provider",
+    "repro_torch.serving.engine", "repro_torch.serving.scheduler",
+    "repro_torch.serving.closed_loop", "repro_torch.serving.workload",
+    "repro_torch.serving.service",
+    "repro_torch.traffic", "repro_torch.traffic.arrivals",
+    "repro_torch.traffic.loadgen", "repro_torch.traffic.slo",
+    "repro_torch.traffic.tenancy", "repro_torch.traffic.scoring",
 ])
 def test_submodule_was_imported(import_report, name):
     assert name in import_report["imported"]
@@ -122,8 +131,9 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     from repro_torch.kernels.resident_intersect import (
         resident_intersect_counts,
     )
-    from repro_torch.launch import (lcc_run, resident_timing, serve,
-                                    stream_run, train)
+    from repro_torch.launch import (lcc_run, query_serve, resident_timing,
+                                    serve, stream_run, train)
+    from repro_torch.serving import LiveQueryService, QueryEngine
     from repro_torch.streaming import DynamicCSR, StreamingLCCEngine
 
     if torch.cuda.is_available():
@@ -146,6 +156,9 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         lambda: serve.main(["--arch", "din", "--smoke"]),
         lambda: train.main(["--arch", "gin-tu", "--steps", "1"]),
         lambda: resident_timing.main(["--scale", "6"]),
+        lambda: query_serve.main(["--smoke"]),
+        lambda: LiveQueryService(g, p=2),
+        lambda: QueryEngine(DynamicCSR.from_csr(g)),
         lambda: StreamingLCCEngine(g),
         lambda: ResidencyManager(DynamicCSR.from_csr(g), slots=4),
         lambda: ShardedRuntime(DynamicCSR.from_csr(g), 2, device_slots=4),
@@ -156,6 +169,9 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    # the SPMD plane is refused before any graph is built or device asked
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        query_serve.main(["--smoke", "--spmd", "--ranks", "2"])
     # the host path of the ragged-pair entry touches no device
     assert point_query.batched_pair_counts(
         [rows[0]], [rows[0]], sentinel=9).tolist() == [2]

@@ -373,7 +373,7 @@ def test_engine_spmd_and_pipeline_not_ported():
     g = CSRGraph.from_reference(ref_powerlaw_graph(20, 3, seed=0))
     rt = ShardedRuntime(None, 2, n=g.n)
     for kw in ({"execution": "spmd", "runtime": rt}, {"pipeline": True}):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        with pytest.raises(NotImplementedError, match="Queue A item 2"):
             StreamingLCCEngine(g, device="cpu", **kw)
 
 
@@ -417,5 +417,5 @@ def test_stream_run_routes_cpu_match_reference(capsys):
 
 
 def test_stream_run_spmd_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         stream_run.main(["--scale", "6", "--spmd", "--device", "cpu"])
