@@ -10,9 +10,10 @@ builds every hand-written kernel from the sources in this checkout (one
 version on the card (integers: bit for bit, tolerance 0; floats at the
 stated tolerances), drives the port's paths — the paper's LCC
 pipeline, the streaming path with the device tier, online graph query
-serving with its traffic plane, serving (gemma2-27b prefill + decode, DIN
-scoring) and GNN training (gin-tu at ogb_products' size) — through their
-public entry points, and fails (non-zero exit) if any
+serving with its traffic plane, the SPMD data plane (the stream and query
+serving with ``--spmd --pipeline``), serving (gemma2-27b prefill + decode,
+DIN scoring) and GNN training (gin-tu at ogb_products' size) — through
+their public entry points, and fails (non-zero exit) if any
 phase fails. Each phase prints one
 JSON object on a line of its own:
 
@@ -70,22 +71,43 @@ JSON object on a line of its own:
            verified
   query_serve  the serving and traffic planes
            (``repro_torch.launch.query_serve``): (a) ``main`` at R-MAT
-           scale 12 / edge factor 16, p = 8, 2,048 Zipf queries, 20% write
+           scale 12 / edge factor 16, p = 8, 1,024 Zipf queries, 20% write
            events, device tier of 1,024 slots, ``--verify`` (every answer
            against a recount of its snapshot); (b) the same graph with
-           ``--ranks 8 --verify`` (1,024 queries), then open-loop Poisson
+           ``--ranks 8 --verify`` (512 queries), then open-loop Poisson
            arrivals at half (a)'s in-engine q/s with ``--slo --tenants 3
-           --ewma-scores --verify`` (1,024 queries); (c) scale 16, 1,024
+           --ewma-scores --verify`` (1,024 queries); (c) scale 16, 256
            queries, window 64, 4,096 tier slots, driven through the
            launcher's ``build_service`` and ``closed_loop``, every answer
            checked against the stream engine's ``t`` / ``lcc``, the
            store's rows and a ``lexsort`` of ``lcc``, the widest B1 and B3
            calls held against their plain versions, q/s, latency, hit
-           rates and launches per microbatch; 256 further queries on the
+           rates and launches per microbatch; 128 further queries on the
            same service under ``torch.profiler`` (device ms, idle share);
-           ``svc.verify()``; (d) scale 14, 1,024 queries, the kernel route
+           ``svc.verify()``; (d) scale 14, 512 queries, the kernel route
            against the plain route (``use_kernel=False``): answers, stream
            state, provider and tier stats and pair counters bit for bit
+  spmd     the SPMD data plane (``distributed/spmd_runtime.py``, B5
+           ``serve_block`` and B6 ``pair_counts``): (a) both kernels
+           against their plain versions, whole, tolerance 0, on edge units
+           (the empty unit, pairs with no serve traffic: the cached
+           sentinel block, a buffer of W = 32 that clips the ladder,
+           phantom positions) and on units captured from the runs below
+           (the largest unit of the S14 stream, the S12 hub partition's
+           first units, a window of the S16 service), each timed beside its
+           plain version, its bound and (B5) ``index_select + F.pad + cat``;
+           (b) ``stream_run`` at the stream phase's argv with ``--spmd
+           --pipeline``: every ``BatchResult``, ``t`` and ``lcc`` equal to
+           the stream phase's loop run, verified, the ledger's pairs equal
+           to the delta pairs, updates/s beside the loop route's; (c)
+           ``query_serve`` S12 ``--ranks 8 --spmd --pipeline --verify`` (512
+           queries), S12 ``--partition hub --ranks 8 --spmd --verify``
+           (split-hub fragments shipped; 256 queries), and S16 at (c)'s argv
+           with ``--ranks 8``, 256 queries on the SPMD route and on the loop
+           route, every answer checked as in ``query_serve`` (c), measured
+           == modeled, q/s, p99, peak memory and the ledger; (d) the first 4
+           units of (c)'s first run dispatched under
+           ``torch.cuda.set_sync_debug_mode("error")``
   serve_lm ``repro_torch.launch.serve.main`` on gemma2-27b at full width
            and depth (46 layers, ~55 GB of bf16 weights; the graph phases'
            device tensors are freed first): the launcher's default 32-token
@@ -146,7 +168,8 @@ then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``. The launch counts in the summary are read
 from the wrappers' counters, set to 0 just before each path (``entry``
 through ``pairs``; ``stream``; ``stream_routes``; each run of
-``query_serve``; the 8,192-token
+``query_serve``; each run of ``spmd``, less the launches its checks add;
+the 8,192-token
 ``serve_lm`` run; ``serve_din``; each launcher run and each cell's kernel
 route in ``train_gnn``) and read just after it; launches made by
 ``checks`` and ``timing`` are not in them, except for B2, whose only path is
@@ -173,7 +196,7 @@ FULL_ROUNDS = 32
 N_PAIRS = 100_000
 LIBRARIES = ("intersect_count", "epoch_count", "resident_intersect",
              "bitmap_popcount", "flash_attention", "flash_attention_wgmma",
-             "embedding_bag", "segment_sum_sorted")
+             "embedding_bag", "segment_sum_sorted", "spmd_plane")
 STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
@@ -189,28 +212,39 @@ ROUTES_ARGV = ["--scale", "12", "--edge-factor", "16", "--batches", "8",
 # (c) the static cell's graph, timed, then a profiled continuation; (d)
 # both routes at S14. Depth is cut to the time limit: (c) served 9.43 q/s
 # on an H100 (host-bound: 434 s for 4,096 queries, PERF.md), so it takes
-# 1,024 here; (d) 1,024 queries.
+# 256 here; (a) 1,024 queries, (b), (d) 512 (1,024 / 2,048, 1,024 / 256 /
+# 1,024 before phase spmd joined the script).
 # B1's checks at the serving path's widest buckets: wa, wb up to
 # pow2_ceil of the S16 graph's max degree (9,754), E down to 1
 SERVING_WIDE_B1 = ((1, 16384, 16384), (1, 16384, 1), (5, 1, 16384),
                    (64, 16384, 2048), (3, 8192, 16384))
 QS_VERIFY_ARGV = ["--scale", "12", "--edge-factor", "16", "--p", "8",
-                  "--queries", "2048", "--workload", "zipf",
+                  "--queries", "1024", "--workload", "zipf",
                   "--write-frac", "0.2", "--device-tier",
                   "--device-slots", "1024", "--verify"]
-QS_RANKS_QUERIES = 1024
+QS_RANKS_QUERIES = 512
 QS_OPEN_FLAGS = ["--open-loop", "poisson", "--slo", "--tenants", "3",
                  "--ewma-scores", "--queries", "1024"]
 QS_TIMED_ARGV = ["--scale", "16", "--edge-factor", "16", "--p", "8",
                  "--workload", "zipf", "--write-frac", "0.2",
                  "--batch-window", "64", "--device-tier",
                  "--device-slots", "4096"]
-QS_TIMED_QUERIES = 1024
-QS_PROFILED_QUERIES = 256
+QS_TIMED_QUERIES = 256
+QS_PROFILED_QUERIES = 128
 QS_ROUTES_ARGV = ["--scale", "14", "--edge-factor", "16", "--p", "8",
-                  "--queries", "1024", "--workload", "zipf",
+                  "--queries", "512", "--workload", "zipf",
                   "--write-frac", "0.2", "--device-tier",
                   "--device-slots", "4096"]
+# the SPMD data plane (phase spmd): S16 queries a route (the loop route's
+# --ranks 8 beside it), the S12 hub-partition argv (no device tier, so hub
+# rows are fetched and ship as fragments), units dispatched under the sync
+# check, and units checked inline a run
+SPMD_QS_QUERIES = 256
+SPMD_HUB_ARGV = ["--scale", "12", "--edge-factor", "16", "--queries", "256",
+                 "--workload", "zipf", "--write-frac", "0.2", "--partition",
+                 "hub", "--ranks", "8", "--spmd", "--verify"]
+SPMD_SYNC_UNITS = 4
+SPMD_CHECKS_PER_RUN = 3
 VS_SLOTS_PLAIN_PAIRS = 2048  # the all-pairs plain version costs ~W^2/pair
 BITMAP_PAIRS = 65_536
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1997,6 +2031,528 @@ def phase_query_serve(dev, np, torch):
     return rec, path
 
 
+class SpmdRecorder:
+    """Wraps the SPMD executor's two device programs as it calls them
+    (``kernels/spmd_plane.py``'s ``serve_block`` and ``pair_counts``, read
+    from the module at every unit): counts calls, and holds kernel output against the plain version on the same inputs,
+    whole, at tolerance 0. ``mode`` says when: ``"inline"`` right after the
+    launch (it synchronises; before any later patch of the buffer), for a
+    unit at least 1.5x the largest one checked in this run, at most
+    ``SPMD_CHECKS_PER_RUN`` a run, or every unit with ``check_all``;
+    ``"clone"`` copies the largest unit's inputs and output on the device
+    (no synchronisation) and ``flush()`` checks it after the run; ``"off"``
+    only counts. A check also times kernel, plain version and, for B5, a
+    library composite (CUDA events) and computes the bound; the launches
+    it adds are kept in ``extra`` and are not the path's."""
+
+    def __init__(self, sp, np, torch):
+        self.sp, self.np, self.torch = sp, np, torch
+        self.orig = {k: getattr(sp, k) for k in ("serve_block", "pair_counts")}
+        self.extra = {"serve_block": 0, "pair_counts": 0}
+        self.checks = []
+        self.max_abs_err = 0
+        self.run("off")
+
+    def run(self, tag, mode="off", check_all=False):
+        self.tag, self.mode, self.check_all = tag, mode, check_all
+        self.done = {"serve_block": [], "pair_counts": []}
+        self.kept = {}
+        self.calls = {"serve_block": 0, "pair_counts": 0}
+
+    def __enter__(self):
+        sp = self.sp
+
+        def serve(rows, serve_idx, serve_cfg, f_pad, *, sentinel):
+            out = self.orig["serve_block"](rows, serve_idx, serve_cfg, f_pad,
+                                           sentinel=sentinel)
+            self._seen("serve_block", out.numel(),
+                       (rows, serve_idx, list(serve_cfg), int(f_pad)),
+                       {"sentinel": sentinel}, out)
+            return out
+
+        def pairs(rows, fetched, *lists, pair_cfg, sentinel):
+            out = self.orig["pair_counts"](rows, fetched, *lists,
+                                           pair_cfg=pair_cfg,
+                                           sentinel=sentinel)
+            self._seen("pair_counts", out.numel() * rows.shape[2],
+                       (rows, fetched, *lists),
+                       {"pair_cfg": list(pair_cfg), "sentinel": sentinel}, out)
+            return out
+
+        sp.serve_block, sp.pair_counts = serve, pairs
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.sp, k, fn)
+
+    def _seen(self, name, size, args, kw, out):
+        self.calls[name] += 1
+        if self.mode == "inline":
+            last = self.done[name][-1] if self.done[name] else 0
+            if self.check_all or (size >= 1.5 * last and len(self.done[name])
+                                  < SPMD_CHECKS_PER_RUN):
+                self.done[name].append(size)
+                self.check(name, args, kw, out)
+        elif self.mode == "clone":
+            if size > self.kept.get(name, (0,))[0]:
+                self.kept[name] = (size, tuple(a.clone() if hasattr(a, "clone")
+                                               else a for a in args),
+                                   kw, out.clone())
+
+    def flush(self):
+        """Check the units kept in ``"clone"`` mode; free them."""
+        for name, (_, args, kw, out) in sorted(self.kept.items()):
+            self.check(name, args, kw, out)
+        self.kept = {}
+
+    def check(self, name, args, kw, out):
+        np, torch, sp = self.np, self.torch, self.sp
+        torch.cuda.synchronize()
+        before = sp.launches()
+        plain = getattr(sp, name + "_ref")
+        want = plain(*args, **kw)
+        if out.dtype != torch.int32 or out.shape != want.shape:
+            raise RuntimeError(f"spmd: {name} output {out.dtype} "
+                               f"{tuple(out.shape)} vs {tuple(want.shape)}")
+        err = 0
+        if not torch.equal(out, want):  # tolerance 0; the size of the miss
+            flat_o, flat_w = out.reshape(-1), want.reshape(-1)
+            step = 1 << 26
+            err = max(int((flat_o[i: i + step].long()
+                           - flat_w[i: i + step].long()).abs().max())
+                      for i in range(0, flat_o.numel(), step))
+        del want
+        self.max_abs_err = max(self.max_abs_err, err)
+        if err:
+            raise RuntimeError(f"spmd ({self.tag}): {name} kernel != plain "
+                               f"version (err {err})")
+        kernel = self.orig[name]
+        rec = {"run": self.tag, "kernel": name, "err": err,
+               "ms": min_ms(lambda: kernel(*args, **kw), reps=5, warmup=1),
+               "plain_ms": cuda_ms(lambda: plain(*args, **kw), reps=1,
+                                   warmup=0)}
+        if name == "serve_block":
+            rows, serve_idx, cfg, f_pad = args
+            rec["shape"] = {"rows": list(rows.shape),
+                            "serve_idx": list(serve_idx.shape),
+                            "rungs": cfg, "f_pad": f_pad}
+            rec["library_ms"] = cuda_ms(lambda: library_block(
+                rows, serve_idx, cfg, f_pad, kw["sentinel"], torch),
+                reps=3, warmup=1)
+            nbytes = serve_bytes(rows, serve_idx, cfg, out, torch)
+            ops = 0.0
+        else:
+            rows, fetched, a_idx, b_idx, a_len, b_len, mask = args
+            real = mask
+            rec["shape"] = {"rows": list(rows.shape),
+                            "fetched": list(fetched.shape),
+                            "worklist": list(a_idx.shape),
+                            "buckets": kw["pair_cfg"],
+                            "real_sub_pairs": int(real.sum()),
+                            "phantoms": int((~real).sum())}
+            if int(out[~real].abs().sum()):
+                raise RuntimeError("spmd: a phantom position counted")
+            rec["library_ms"] = None
+            nbytes = pair_bytes(rows, fetched, a_idx, b_idx, a_len, b_len,
+                                mask, torch)
+            ops = pair_ops(a_len[real], b_len[real], torch)
+        rec["bytes"], rec["ops"] = nbytes, ops
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+        torch.cuda.synchronize()
+        for k, n in sp.launches().items():
+            self.extra[k] += n - before[k]
+        self.checks.append(rec)
+
+
+def library_block(rows, serve_idx, serve_cfg, f_pad, sentinel, torch):
+    """The fetched block by stock torch calls: one ``index_select`` of a
+    rung's rows (at the rung's width) from the flattened buffer in
+    requester order, ``F.pad`` to W, ``torch.cat`` with the sentinel tail."""
+    import torch.nn.functional as F
+
+    p, h, w = rows.shape
+    flat = rows.view(p * h, w)
+    base = (torch.arange(p, device=rows.device) * h)[:, None, None]
+    parts, off = [], 0
+    for s_b, w_b in serve_cfg:
+        idx = (serve_idx[:, :, off: off + s_b].long() + base).transpose(0, 1)
+        got = torch.index_select(flat[:, :w_b], 0, idx.reshape(-1))
+        parts.append(F.pad(got, (0, w - w_b), value=sentinel)
+                     .view(p, p * s_b, w))
+        off += s_b
+    n_rows = sum(x.shape[1] for x in parts)
+    parts.append(rows.new_full((p, f_pad - n_rows, w), sentinel))
+    return torch.cat(parts, 1)
+
+
+def serve_bytes(rows, serve_idx, serve_cfg, out, torch) -> float:
+    """B5's bytes: each distinct served row read once at its rung's width,
+    the slot list, the block written once."""
+    p, h, _ = rows.shape
+    base = (torch.arange(p, device=rows.device) * h)[:, None, None]
+    total, off = 0.0, 0
+    for s_b, w_b in serve_cfg:
+        keys = serve_idx[:, :, off: off + s_b].long() + base
+        total += float(torch.unique(keys).numel()) * w_b * 4
+        off += s_b
+    return total + serve_idx.numel() * 4.0 + out.numel() * 4.0
+
+
+def pair_bytes(rows, fetched, a_idx, b_idx, a_len, b_len, mask,
+               torch) -> float:
+    """B6's bytes: each distinct row a real sub-pair reads, once, over its
+    valid length; the index, length and mask lists; the counts written."""
+    p, h, _ = rows.shape
+    stride = h + fetched.shape[1]
+    rank = torch.arange(p, device=rows.device)[:, None] * stride
+    keys = torch.cat([(a_idx.long() + rank)[mask], (b_idx.long() + rank)[mask]])
+    lens = torch.cat([a_len[mask], b_len[mask]]).long()
+    uniq, inv = torch.unique(keys, return_inverse=True)
+    per = torch.zeros(uniq.numel(), dtype=torch.long, device=rows.device)
+    per.scatter_(0, inv, lens)
+    n = a_idx.numel()
+    return float(per.sum()) * 4 + n * (4 * 4 + 1 + 4.0)
+
+
+def spmd_edge_units(dev, np, torch):
+    """The executor on the card over units built to reach B5 and B6's
+    edges, every unit checked (``SpmdRecorder`` inline, check_all): the
+    empty unit (no launch), pairs with no serve traffic (the cached sentinel
+    block, no B5), a buffer narrower than the ladder (W = 32: the rungs and
+    buckets clipped to it), phantom positions at the pad slot, and a p = 8
+    unit whose every row ships. Returns what each unit exercised."""
+    from repro_torch.core.partition import partition_1d
+    from repro_torch.distributed import spmd_runtime as spmd
+    from repro_torch.kernels import spmd_plane as sp
+
+    rng = np.random.default_rng(20)
+    out = []
+
+    class Rows:
+        def __init__(self, rows):
+            self.rows = rows
+
+        def row(self, v):
+            return self.rows[int(v)]
+
+    for name, p, n, hi, ship in (("no_serve", 4, 256, 30, False),
+                                 ("clipped_w32", 4, 256, 30, True),
+                                 ("all_shipped", 8, 4096, 600, True)):
+        rows = {v: np.sort(rng.choice(n, int(rng.integers(0, hi)),
+                                      replace=False)).astype(np.int32)
+                for v in range(n)}
+        part = partition_1d(n, p)
+        ex = spmd.SpmdIntersectExecutor(part, n, device=dev)
+        shards = []
+        for j in range(p):
+            a = rng.integers(0, n, 48).astype(np.int64)
+            b = rng.integers(0, n, 48).astype(np.int64)
+            if not ship:  # every row held where it is read
+                held = {int(v): rows[int(v)] for v in np.concatenate([a, b])}
+                fetched = []
+            else:
+                ids = np.unique(np.concatenate([a, b]))
+                own = part.owner(ids) == j
+                held = {int(v): rows[int(v)] for v in ids[own]}
+                fetched = [int(v) for v in ids[~own]]
+            shards.append(spmd.ShardWork(j, a, b, held, fetched))
+        before = sp.launches()
+        counts, unit = ex.run(shards, Rows(rows))
+        want = [np.array([np.intersect1d(rows[int(x)], rows[int(y)]).size
+                          for x, y in zip(s.pair_a, s.pair_b)], np.int64)
+                for s in shards]
+        if not all(c.dtype == np.int64 and np.array_equal(c, w)
+                   for c, w in zip(counts, want)):
+            raise RuntimeError(f"spmd edge unit {name}: wrong counts")
+        got = {k: sp.launches()[k] - before[k] for k in before}
+        if got["pair_counts"] < 1 or (got["serve_block"] > 0) != ship:
+            raise RuntimeError(f"spmd edge unit {name}: launches {got}")
+        out.append({"unit": name, "p": p, "W": ex._buf.w, "H": ex._buf.h,
+                    "rungs_clipped_to_W": ex._pair_widths(ex._buf.w),
+                    "rows_shipped": unit.total_rows,
+                    "serve_launched": got["serve_block"] > 0})
+    ex = spmd.SpmdIntersectExecutor(partition_1d(16, 2), 16, device=dev)
+    z = np.zeros(0, np.int64)
+    before = sp.launches()
+    counts, unit = ex.run([spmd.ShardWork(k, z, z, {}) for k in range(2)],
+                          Rows({}))
+    if sp.launches() != before or any(c.size for c in counts):
+        raise RuntimeError("spmd: the empty unit launched or counted")
+    out.append({"unit": "empty", "launches": 0})
+    return out
+
+
+def phase_spmd(dev, np, torch, stream_loop):
+    """The SPMD data plane (``distributed/spmd_runtime.py``) on the card,
+    B5 and B6 on its path: (a) both kernels against their plain versions,
+    tolerance 0, on units captured from the runs below (the largest S14
+    stream unit; the S12 hub partition's units with split hubs; an S16
+    query microbatch) and on edge units, each timed beside its plain
+    version, its bound and (B5) a library composite; (b) ``stream_run``
+    with ``--spmd --pipeline`` at ``STREAM_ARGV``, every ``BatchResult``,
+    ``t`` and ``lcc`` equal to phase ``stream``'s loop run of the same seed
+    (``stream_loop``), verified against a recount, the ledger's pairs equal
+    the engine's; (c) ``query_serve``: S12 ``--ranks 8 --spmd --pipeline
+    --verify``, S12 ``--partition hub --ranks 8 --spmd --verify``, and S16
+    at ``QS_TIMED_ARGV --ranks 8 --spmd --pipeline`` beside the loop route
+    at ``--ranks 8`` (``SPMD_QS_QUERIES`` each, every answer checked, the
+    spans of ``obs/trace.py`` summed by name), then
+    one more window of the S16 SPMD service with its units checked and its
+    cached and resident rows audited against the store; (d) the
+    first ``SPMD_SYNC_UNITS`` units of (c)'s first run dispatched under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns (phase record,
+    {kernel: path launches}, the recorder)."""
+    import dataclasses as dc
+
+    from repro_torch.distributed import spmd_runtime as spmd
+    from repro_torch.kernels import spmd_plane as sp
+    from repro_torch.launch import query_serve, stream_run
+    from repro_torch.obs import trace as obs_trace
+
+    rec = {"phase": "spmd"}
+    launches = {}
+    recorder = SpmdRecorder(sp, np, torch)
+
+    def counted(tag, fn):
+        sp.reset_launches()
+        extra0 = dict(recorder.extra)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[tag] = {k: n - (recorder.extra[k] - extra0[k])
+                         for k, n in sp.launches().items()}
+        if min(launches[tag].values()) <= 0:
+            raise RuntimeError(f"spmd ({tag}): a kernel never launched "
+                               f"{launches[tag]}")
+        return out
+
+    with recorder:
+        # (a) edge units
+        recorder.run("edge_units", "inline", check_all=True)
+        rec["edge_units"] = spmd_edge_units(dev, np, torch)
+
+        # (b) the stream, SPMD and pipelined, against phase stream's run
+        recorder.run("stream_s14", "clone")
+        run = {}
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        rc = counted("stream", lambda: stream_run.main(
+            STREAM_ARGV + ["--spmd", "--pipeline"], result=run))
+        if rc != 0:
+            raise RuntimeError(f"spmd stream_run.main returned {rc}")
+        peak = torch.cuda.max_memory_allocated()
+        eng = run["engine"]
+        got = [dc.asdict(b) for b in run["batches"]]
+        if got != stream_loop["batches"]:
+            raise RuntimeError("spmd stream: a BatchResult differs from the "
+                               "loop run's")
+        if not (np.array_equal(eng.t, stream_loop["t"])
+                and np.array_equal(eng.lcc, stream_loop["lcc"])
+                and eng.t.dtype == stream_loop["t"].dtype
+                and eng.lcc.dtype == stream_loop["lcc"].dtype):
+            raise RuntimeError("spmd stream: t / lcc differ from the loop "
+                               "run's")
+        eng.verify()
+        led = eng.spmd.ledger
+        if led.n_pairs != eng.delta_pairs_total or led.n_collectives <= 0:
+            raise RuntimeError(f"spmd stream: ledger pairs {led.n_pairs} vs "
+                               f"{eng.delta_pairs_total} delta pairs")
+        if eng.spmd.audit_resident(eng.store) != 0:
+            raise RuntimeError("spmd stream: stale resident rows")
+        rec["stream"] = {
+            "argv": " ".join(STREAM_ARGV + ["--spmd", "--pipeline"]),
+            "seconds": time.perf_counter() - t0,
+            "batch_wall_s": run["wall_s"],
+            "updates_per_s": eng.n_updates / run["wall_s"],
+            "loop_updates_per_s": stream_loop["updates_per_s"],
+            "equals_loop_run": True, "verified": True,
+            "ledger": led.to_dict(),
+            "ledger_pairs_equal_delta_pairs": True,
+            "buffer": {"H": eng.spmd._buf.h, "W": eng.spmd._buf.w},
+            "peak_bytes": peak, "calls": recorder.calls,
+            "launches": launches["stream"]}
+        del run, eng
+        recorder.flush()  # the largest unit of each kernel, checked now
+
+        # (c) query serving; (d) on the first run's first units
+        sync_units = []
+        real_dispatch = spmd.SpmdIntersectExecutor.dispatch
+
+        def strict_dispatch(ex, shards, store):
+            if len(sync_units) >= SPMD_SYNC_UNITS:
+                return real_dispatch(ex, shards, store)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pend = real_dispatch(ex, shards, store)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync_units.append({"pairs": int(pend.unit.n_pairs),
+                               "rows_shipped": pend.unit.total_rows,
+                               "patches": int(pend.unit.n_patches)})
+            return pend
+
+        def serve(tag, argv):
+            res = {}
+            t0 = time.perf_counter()
+            lines = counted(tag, lambda: run_launcher(
+                query_serve.main, argv + ["--device", "cuda"], res))
+            out = served_summary(res, lines)
+            if not any("EXACT match" in ln for ln in lines):
+                raise RuntimeError(f"spmd {tag}: measured != modeled")
+            out.update(argv=" ".join(argv), seconds=time.perf_counter() - t0,
+                       launches=launches[tag],
+                       ledger=res["svc"].engine.spmd.ledger.to_dict())
+            return out
+
+        recorder.run("qs_s12_ranks8", "off")
+        spmd.SpmdIntersectExecutor.dispatch = strict_dispatch
+        try:
+            rec["qs_s12_ranks8"] = serve("qs_s12_ranks8", QS_VERIFY_ARGV + [
+                "--ranks", "8", "--queries", str(QS_RANKS_QUERIES),
+                "--spmd", "--pipeline"])
+        finally:
+            spmd.SpmdIntersectExecutor.dispatch = real_dispatch
+        if len(sync_units) < SPMD_SYNC_UNITS:
+            raise RuntimeError(f"spmd: only {len(sync_units)} units under "
+                               "the sync check")
+        rec["dispatch_without_sync"] = {"units": sync_units,
+                                        "mode": "set_sync_debug_mode(error)"}
+
+        frags = []
+        real_ensure = spmd._ResidentShardBuffer.ensure
+
+        def count_frags(buf, needed, unit, keep):
+            frags.append(sum(key > buf.sentinel for d in needed for key in d))
+            return real_ensure(buf, needed, unit, keep)
+
+        recorder.run("qs_s12_hub", "inline")
+        spmd._ResidentShardBuffer.ensure = count_frags
+        try:
+            rec["qs_s12_hub"] = serve("qs_s12_hub", SPMD_HUB_ARGV)
+        finally:
+            spmd._ResidentShardBuffer.ensure = real_ensure
+        if sum(frags) <= 0:
+            raise RuntimeError("spmd hub run: no split hub fragment shipped")
+        rec["qs_s12_hub"]["fragment_keys_resident"] = sum(frags)
+
+        # S16: the SPMD route and the loop route, same argv but --spmd
+        recorder.run("qs_s16", "off")
+        rec["qs_s16"] = {}
+        for route, extra_flags in (("spmd", ["--spmd", "--pipeline"]),
+                                   ("loop", [])):
+            argv = QS_TIMED_ARGV + ["--ranks", "8", "--queries",
+                                    str(SPMD_QS_QUERIES)] + extra_flags
+            args = query_serve.parse_args(argv + ["--device", "cuda"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            w = query_serve.build_service(args, dev)
+            svc = w.svc
+            build_s = time.perf_counter() - t0
+            check = AnswerCheck(svc, np)
+            tracer = obs_trace.enable_tracing()  # spans: where time goes
+            t0 = time.perf_counter()
+            loop = lambda: query_serve.closed_loop(  # noqa: E731
+                args, svc, rebalancer=w.rebalancer, on_results=check)
+            try:
+                served, n_updates = (counted("qs_s16", loop)
+                                     if route == "spmd" else loop())
+                torch.cuda.synchronize()
+            finally:
+                obs_trace.disable_tracing()
+            wall = time.perf_counter() - t0 - check.seconds
+            if served < args.queries or sum(check.by_kind.values()) != served:
+                raise RuntimeError(f"spmd s16 {route}: {served} served, "
+                                   f"{check.by_kind} checked")
+            lat = svc.scheduler.latency_summary()
+            out = {"argv": " ".join(argv), "build_s": build_s,
+                   "served": served, "updates": n_updates,
+                   "checked": dict(check.by_kind), "wall_s": wall,
+                   "qps_end_to_end": served / wall,
+                   "qps_in_engine": lat.throughput_qps,
+                   "p50_ms": lat.p50_ms, "p99_ms": lat.p99_ms,
+                   "max_ms": lat.max_ms,
+                   "microbatches": svc.scheduler.n_batches,
+                   "peak_bytes_beyond_start":
+                       torch.cuda.max_memory_allocated() - base,
+                   "span_seconds": {
+                       k: v["total_s"]
+                       for k, v in tracer.phase_totals().items()}}
+            if route == "spmd":
+                ex = svc.engine.spmd
+                led = ex.ledger
+                modeled = svc.runtime.serve_rows
+                if not np.array_equal(led.rows_shipped, modeled):
+                    raise RuntimeError("spmd s16: measured != modeled")
+                out["ledger"] = led.to_dict()
+                out["measured_equals_modeled"] = True
+                out["buffer"] = {"H": ex._buf.h, "W": ex._buf.w,
+                                 "f_pad": ex._f_hw}
+                out["calls"] = dict(recorder.calls)
+                out["launches"] = launches["qs_s16"]
+                # one more window on the same service, its units checked
+                recorder.run("qs_s16_window", "inline")
+                args_c = type(args)(**{**vars(args), "queries": 64,
+                                       "seed": args.seed + 1,
+                                       "write_frac": 0.0})
+                counted("qs_s16_window", lambda: query_serve.closed_loop(
+                    args_c, svc, on_results=check))
+                out["checked_window_calls"] = dict(recorder.calls)
+                # no stale cached or resident row (the S16 stream's recount
+                # is phase query_serve's; the answers were checked above)
+                cached, stale = svc.runtime.audit_freshness()
+                stale_resident = ex.audit_resident(svc.store)
+                if stale or stale_resident:
+                    raise RuntimeError(f"spmd s16: {stale} stale cached, "
+                                       f"{stale_resident} stale resident rows")
+                out["audited_rows"] = {"cached": cached,
+                                       "resident": sum(map(len,
+                                                           ex._buf.slot_of))}
+            rec["qs_s16"][route] = out
+            del svc, w, check
+    rec["launches"] = launches
+    rec["max_abs_err"] = recorder.max_abs_err
+    rec["checks"] = recorder.checks
+    path = {"serve_block": 0, "pair_counts": 0}
+    for n in launches.values():
+        for k in path:
+            path[k] += n[k]
+    return rec, path, recorder
+
+
+def spmd_kernel_rows(rec, launches, recorder):
+    """The kernels-line entries of B5 and B6: times, plain-version and
+    library times and bound of the S16 window's largest checked unit (of
+    the largest checked unit if none), every check beside them."""
+    rows = []
+    for name, ref_line, body in (("serve_block", 457, "_body_serve"),
+                                 ("pair_counts", 500, "_body_pairs")):
+        checks = [c for c in recorder.checks if c["kernel"] == name]
+        s16 = [c for c in checks if c["run"] == "qs_s16_window"]
+        top = max(s16 or checks, key=lambda c: c["bytes"])
+        rows.append({
+            "name": name, "id": "B5" if name == "serve_block" else "B6",
+            "route": "cuda", "ok": True,
+            "source": "src/repro_torch/kernels/csrc/spmd_plane.cu",
+            "replaces": f"src/repro/distributed/spmd_runtime.py:{ref_line}",
+            "replaces_note": f"{body}, a shard_map program of the SPMD "
+                             "data plane; no pallas_call",
+            "launches": launches[name],
+            "launches_by_run": {t: n[name] for t, n in rec["launches"].items()},
+            "max_abs_err": recorder.max_abs_err, "tolerance": 0,
+            "shape": top["shape"], "shape_from": top["run"],
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library_is": ("index_select + F.pad + cat of the same block"
+                           if name == "serve_block" else None),
+            "checks": checks})
+    return rows
+
+
 def main() -> int:
     # the timing statistic of every kernel time, shared with the package
     global cuda_ms, min_ms
@@ -2366,6 +2922,10 @@ def main() -> int:
     s_eng = run["engine"]
     s_rt = s_eng.runtime
     s_eng.verify()  # the launcher verified every 4th batch; once more here
+    # what phase spmd's SPMD run of the same argv and seed must equal
+    stream_loop = {"batches": [dataclasses.asdict(b) for b in run["batches"]],
+                   "t": s_eng.t.copy(), "lcc": s_eng.lcc.copy(),
+                   "updates_per_s": s_eng.n_updates / run["wall_s"]}
     largest, stream_err = rec.recheck(dev, np)
     ds = s_rt.merged_device_stats()
     stream_out = {
@@ -2463,6 +3023,14 @@ def main() -> int:
     # ------------------------------------------------------- query_serve
     qs_rec, qs_launches = phase_query_serve(dev, np, torch)
     emit(qs_rec)
+
+    # -------------------------------------------------------------- spmd
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd_rec, spmd_launches, spmd_checks = phase_spmd(dev, np, torch,
+                                                      stream_loop)
+    del stream_loop
+    emit(spmd_rec)
 
     # ------------------------------------------------------------- timing
     # round 0 of the full-size schedule, all ranks, in the engine's slabs
@@ -2782,7 +3350,8 @@ def main() -> int:
         "bound_ms": segsum["D64"]["bound_ms"],
         "bound_by": segsum["D64"]["bound_by"],
         "library_ms": segsum["D64"]["library_ms"],
-        "layer1_D100": segsum["D100"]}],
+        "layer1_D100": segsum["D100"]},
+        *spmd_kernel_rows(spmd_rec, spmd_launches, spmd_checks)],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -42,9 +42,10 @@ target vertex, remote rows shipped owner -> requester through that
 rank's cache (the dynamic analogue of the static engine's all-to-all
 serve lists). Per-rank cache/read stats and the cross-rank transport
 totals are reported alongside the aggregate. ``--p`` without ``--ranks``
-keeps the classic single-rank view of a p-way partition. ``--spmd`` and
-``--pipeline`` (the rank views as one rank-sharded device program) are
-not ported yet and raise ``NotImplementedError``.
+keeps the classic single-rank view of a p-way partition. ``--spmd`` runs
+the ``--ranks`` views as one SPMD execution unit a microbatch on the same
+device (the serve block B5 and the pair counts B6); ``--pipeline``
+double-buffers those microbatches.
 
 Reports throughput, p50/p99 latency, provider hit rate, and — with
 ``--verify`` (on in ``--smoke``) — recomputes every point query against
@@ -99,12 +100,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "instances over the runtime, routing each query to "
                          "its owner rank (0: single-rank view of --p)")
     ap.add_argument("--spmd", action="store_true",
-                    help="the --ranks rank views as one rank-sharded device "
-                         "program (not ported yet: raises "
-                         "NotImplementedError)")
+                    help="execute the --ranks rank views as one SPMD "
+                         "execution unit a microbatch on --device: remote "
+                         "rows ship through the serve block (B5) whose "
+                         "measured traffic is reconciled against the "
+                         "modeled serve matrix, pairs counted by B6")
     ap.add_argument("--pipeline", action="store_true",
-                    help="with --spmd: double-buffered microbatches (not "
-                         "ported yet: raises NotImplementedError)")
+                    help="with --spmd: double-buffer microbatches — the "
+                         "host pack + launch of window k+1 overlaps window "
+                         "k's in-flight device counts (bit-identical "
+                         "results; end_batch is the only device sync)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; there is no automatic CPU switch")
     ap.add_argument("--device-scope", choices=("replicated", "per_rank"),
@@ -194,18 +199,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "audit, offline policy replay incl. Belady)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.spmd or args.pipeline:
-        raise NotImplementedError(
-            "not ported yet: --spmd / --pipeline need "
-            "distributed/spmd_runtime.py (ROADMAP Queue A item 2, the SPMD "
-            "plane)"
-        )
     if not 0.0 <= args.write_frac <= 0.9:
         ap.error("--write-frac must be in [0, 0.9] (queries must flow)")
     if args.uncached and args.device_tier:
         ap.error("--uncached is the no-cache baseline; a device tier on "
                  "top of it would serve remote reads from residency and "
                  "corrupt the comparison")
+    if args.spmd and args.ranks <= 0:
+        ap.error("--spmd executes the cross-rank views on devices; "
+                 "pass --ranks p")
+    if args.pipeline and not args.spmd:
+        ap.error("--pipeline double-buffers SPMD microbatches; pass --spmd")
     if args.device_scope != "replicated" and not args.device_tier:
         ap.error("--device-scope shapes the device tier; pass --device-tier")
     if args.trace_fine and not args.trace:
@@ -293,7 +297,9 @@ def build_service(
     p = args.ranks if cross_rank else args.p
     print(f"R-MAT S{args.scale} EF{args.edge_factor}: n={n}, m={csr.m} "
           f"(directed), max deg {csr.max_degree}"
-          + (f"  [cross-rank serving, p={p}]" if cross_rank else ""))
+          + (f"  [cross-rank serving, p={p}"
+             f"{', SPMD device mesh' if args.spmd else ''}]"
+             if cross_rank else ""))
 
     partition = None
     if args.partition == "hub":
@@ -322,6 +328,8 @@ def build_service(
         device_slots=args.device_slots if args.device_tier else 0,
         device_width=args.device_width,
         uncached=args.uncached,
+        execution="spmd" if args.spmd else "loop",
+        pipeline=args.pipeline,
         device_scope=args.device_scope,
         slo=slo,
         quotas=quotas,
@@ -572,6 +580,27 @@ def main(argv=None, result: Optional[dict] = None):
               f"(trigger {args.rebalance_trigger}x, "
               f"<= {args.max_moves} rows/boundary); runtime saw "
               f"{rt.rows_migrated} ownership changes")
+    if args.spmd:
+        led = svc.engine.spmd.ledger
+        modeled_rows = rt.cross_rank_rows_served()
+        modeled_bytes = sum(s.bytes_fetched for s in rt.stats)
+        agree = (led.total_rows == modeled_rows
+                 and led.bytes_payload == modeled_bytes)
+        print(f"spmd[{led.p} devices]: {led.n_collectives} all_to_all "
+              f"collectives, {led.total_rows} rows / {led.bytes_payload} B "
+              f"payload shipped (modeled {modeled_rows} rows / "
+              f"{modeled_bytes} B — {'EXACT match' if agree else 'MISMATCH'}"
+              f"), {led.bytes_on_wire} B on the padded wire, "
+              f"{led.n_pairs} pairs intersected on-device in "
+              f"{led.device_wall_s:.2f}s")
+        print(f"  async plane: {led.bytes_uploaded} B uploaded in "
+              f"{led.n_patches} resident-buffer patches, "
+              f"{led.upload_bytes_saved} B re-upload saved; wire padding "
+              f"saved {led.wire_padding_saved} B vs single-width "
+              f"({led.bytes_on_wire_single} B)"
+              + (f"; overlap wait {led.overlap_wait_s:.2f}s"
+                 if args.pipeline else ""))
+        assert agree, "measured collective traffic != modeled serve matrix"
     print(f"pair dedup: {svc.engine.n_pairs_raw} raw -> "
           f"{svc.engine.n_pairs_total} intersected")
     if args.max_queue is not None or args.shed_wait_ms is not None:

@@ -59,11 +59,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device; there is no automatic CPU switch")
     ap.add_argument("--spmd", action="store_true",
-                    help="rank-sharded SPMD execution of the delta shards "
-                         "(not ported yet: raises NotImplementedError)")
+                    help="execute the per-rank delta shards as one SPMD "
+                         "execution unit a batch phase on --device: remote "
+                         "rows ship owner->rank through the serve block "
+                         "(B5) and the old-intersect-old counts run in the "
+                         "pair-count program (B6), cross-checked against "
+                         "the host membership masks")
     ap.add_argument("--pipeline", action="store_true",
                     help="with --spmd: double-buffer the two batch phases "
-                         "(not ported yet: raises NotImplementedError)")
+                         "— the insert phase's host pack + launch overlaps "
+                         "the delete phase's in-flight device counts "
+                         "(bit-identical results)")
     ap.add_argument("--device-scope", choices=("replicated", "per_rank"),
                     default="replicated",
                     help="with --device-tier: one hot set replicated on "
@@ -184,6 +190,8 @@ def build_engine(args: argparse.Namespace, device):
         use_kernel=not args.no_kernel,
         compact_threshold=args.compact_threshold,
         coherence=coh,
+        execution="spmd" if args.spmd else "loop",
+        pipeline=args.pipeline,
         device=device,
     )
     runtime = eng.runtime
@@ -237,8 +245,9 @@ def batches(args: argparse.Namespace):
 
 def main(argv=None, result: Optional[dict] = None):
     """Run the stream; returns the exit code. ``result``, when given, is
-    filled with the engine (``"engine"``) and the summed batch wall time
-    (``"wall_s"``) for callers that drive the launcher programmatically."""
+    filled with the engine (``"engine"``), the summed batch wall time
+    (``"wall_s"``) and every ``BatchResult`` (``"batches"``) for callers
+    that drive the launcher programmatically."""
     args = parse_args(argv)
     tracer = None
     if args.trace:
@@ -251,11 +260,6 @@ def main(argv=None, result: Optional[dict] = None):
 
         recorder = obs_cachescope.enable_recording()
     ranks = args.ranks
-    if args.spmd:
-        raise NotImplementedError(
-            "not ported yet: --spmd needs distributed/spmd_runtime.py "
-            "(ROADMAP Queue A item 2, the SPMD plane)"
-        )
     from ..device import resolve_device
 
     device = resolve_device(args.device)
@@ -269,7 +273,8 @@ def main(argv=None, result: Optional[dict] = None):
           f"{total_ops} inserts (+{args.delete_frac:.0%} deletes"
           f"{', hub-targeted' if args.adversarial else ''}) in "
           f"{args.batches} batches of {batch_size}, ranks={ranks}, "
-          f"device={device}")
+          f"device={device}"
+          + ("  [SPMD device mesh]" if args.spmd else ""))
     coh, eng, rebalancer = build_engine(args, device)
     runtime = eng.runtime
 
@@ -296,9 +301,11 @@ def main(argv=None, result: Optional[dict] = None):
 
     wall = 0.0
     verified_last = False
+    batch_results = []
     for i, batch in enumerate(batches(args)):
         t0 = time.perf_counter()
         res = eng.apply_batch(batch)
+        batch_results.append(res)
         plan = (rebalancer.maybe_rebalance(eng.store.degrees)
                 if rebalancer is not None else None)
         dt = time.perf_counter() - t0
@@ -368,6 +375,22 @@ def main(argv=None, result: Optional[dict] = None):
               f"({eng.oo_host_bytes} B still built), "
               f"{ds.patches} patches / {ds.admits} admits / "
               f"{ds.evicts} evicts, {ds.upload_bytes} B uploaded")
+    if args.spmd:
+        led = eng.spmd.ledger
+        print(f"spmd[{led.p} devices]: {led.n_collectives} all_to_all "
+              f"collectives, {led.total_rows} remote rows / "
+              f"{led.bytes_payload} B payload shipped owner->rank, "
+              f"{led.bytes_on_wire} B on the padded wire, "
+              f"{led.n_pairs} oo pairs intersected on-device in "
+              f"{led.device_wall_s:.2f}s (counts cross-checked vs host "
+              f"masks every batch)")
+        print(f"  async plane: {led.bytes_uploaded} B uploaded in "
+              f"{led.n_patches} resident-buffer patches, "
+              f"{led.upload_bytes_saved} B re-upload saved; wire padding "
+              f"saved {led.wire_padding_saved} B vs single-width "
+              f"({led.bytes_on_wire_single} B)"
+              + (f"; overlap wait {led.overlap_wait_s:.2f}s"
+                 if args.pipeline else ""))
     if not args.no_verify:
         if not verified_last:  # last batch's checkpoint already recounted
             eng.verify()
@@ -392,6 +415,7 @@ def main(argv=None, result: Optional[dict] = None):
             fold_trace,
             imbalance,
             record_cachescope,
+            record_collective_ledger,
             record_coherence_report,
             record_runtime,
         )
@@ -407,6 +431,11 @@ def main(argv=None, result: Optional[dict] = None):
                         tier="host", phase="intersect_kernel")
         reg.gauge("shard_imbalance", imbalance(eng.shard_pairs),
                   tier="host")
+        if args.spmd:
+            # measured wire traffic only — no reconciliation claim: the
+            # loop-path counterpart of these reads goes straight to the
+            # store, so the serve matrix models none of this traffic
+            record_collective_ledger(reg, eng.spmd.ledger)
         if tracer is not None:
             fold_trace(reg, tracer)
         snap = reg.to_dict()
@@ -423,7 +452,7 @@ def main(argv=None, result: Optional[dict] = None):
         print(f"trace: {len(tracer)} events -> {args.trace} "
               "(open at ui.perfetto.dev)")
     if result is not None:
-        result.update(engine=eng, wall_s=wall)
+        result.update(engine=eng, wall_s=wall, batches=batch_results)
     return 0
 
 

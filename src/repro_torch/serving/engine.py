@@ -46,6 +46,7 @@ from .provider import DirectRowProvider, RuntimeRowProvider
 from .requests import Query, QueryKind, QueryResult
 
 __all__ = [
+    "InflightBatch",
     "PreparedBatch",
     "QueryEngine",
     "ShardedQueryEngine",
@@ -57,7 +58,8 @@ class PreparedBatch:
     """Host-side half of one microbatch: rows fetched (control plane
     complete — cache stats and the serve matrix are already charged),
     pair worklist deduplicated. What remains is counting the unique
-    pairs on this engine (``_pair_counts``)."""
+    pairs — in loop mode immediately on this engine (``_pair_counts``), in
+    SPMD mode as one execution unit across all engines."""
 
     queries: Sequence[Query]
     tri: List[Query]
@@ -328,9 +330,8 @@ class QueryEngine:
     def _residency_groups(
         u_lo: np.ndarray, u_hi: np.ndarray, rows: Dict[int, np.ndarray]
     ):
-        """Residency routing for ``_pair_counts``, kept apart so that the
-        SPMD mode to come (ROADMAP Queue A item 2) routes and claims
-        exactly as the loop mode does: which side of
+        """Residency routing shared by loop mode (``_pair_counts``) and
+        SPMD mode (``ShardedQueryEngine._shard_work``): which side of
         each unique pair was materialized, plus the routed groups in the
         canonical order (resident-hi first, then resident-lo). ~hi_in
         and ~lo_in are disjoint (asserted): exactly one side of a
@@ -417,6 +418,20 @@ class QueryEngine:
         return self._static_lcc
 
 
+@dataclasses.dataclass
+class InflightBatch:
+    """One dispatched-but-unfinalized SPMD microbatch. The control
+    plane (cache admission, stats, serve matrix, the measured-vs-
+    modeled reconciliation) completed at ``begin_batch``; only the
+    device counts are outstanding — ``end_batch`` waits and scatters
+    them into results."""
+
+    queries: Sequence[Query]
+    by_rank: Dict[int, List[int]]
+    preps: List[Optional[PreparedBatch]]
+    pending: object  # distributed.spmd_runtime.PendingUnit
+
+
 class ShardedQueryEngine:
     """p per-rank ``QueryEngine`` instances over one shared runtime.
 
@@ -430,11 +445,27 @@ class ShardedQueryEngine:
     independent of the routing (the scheduler and callers can't tell p=1
     from p=8 apart from the metrics).
 
-    ``execution="loop"`` runs the p rank views one after another in this
-    process, each engine's counts on ``device``. ``execution="spmd"`` and
-    ``pipeline=True`` (one rank-sharded device call per microbatch, and
-    its double-buffered drain) need the SPMD data plane, which is not
-    ported yet: they raise ``NotImplementedError``."""
+    ``execution`` picks how the p rank views run their intersect work, on
+    ``device``:
+
+    - ``"loop"`` — sequential Python loop over the p in-process engines
+      (the modeled runtime);
+    - ``"spmd"`` — one execution unit per microbatch
+      (``SpmdIntersectExecutor``): every rank's held rows are resident in
+      the unit's ``[p, H, W]`` buffer, remote misses arrive through the
+      serve block (B5) whose measured traffic is asserted equal to the
+      ``serve_rows`` delta the control plane modeled, and pair counts run
+      in the pair-count program (B6). Answers, per-rank cache stats, and
+      the serve matrix are bit-identical between the two modes (only the
+      host-packing ledgers differ — SPMD does not pack rows per pair).
+
+    ``pipeline`` (SPMD only) exposes the double-buffered shape: a
+    microbatch splits into ``begin_batch`` (prepare + dispatch, no device
+    sync) and ``end_batch`` (wait + finalize), so a caller — the
+    ``MicrobatchScheduler``'s ``flush`` — can overlap the pack + launch of
+    window k+1 with the in-flight counts of window k. Pipelined and
+    unpipelined execution are bit-identical: the control plane is
+    sequential host-side either way."""
 
     def __init__(
         self,
@@ -448,13 +479,11 @@ class ShardedQueryEngine:
         device="cuda",
     ):
         assert execution in ("loop", "spmd"), execution
-        if execution == "spmd" or pipeline:
-            raise NotImplementedError(
-                "not ported yet: execution='spmd' / pipeline=True need "
-                "distributed/spmd_runtime.py (ROADMAP Queue A item 2, the "
-                "SPMD plane)"
-            )
+        assert not (pipeline and execution != "spmd"), (
+            "pipeline requires execution='spmd'"
+        )
         self.runtime = runtime
+        self.pipeline = bool(pipeline)
         self.engines = [
             QueryEngine(
                 store,
@@ -466,6 +495,18 @@ class ShardedQueryEngine:
             for rank in range(runtime.p)
         ]
         self.store = store
+        self.execution = execution
+        self.spmd = None
+        if execution == "spmd":
+            from ..distributed.spmd_runtime import SpmdIntersectExecutor
+
+            self.spmd = SpmdIntersectExecutor(
+                runtime.part,
+                runtime.n,
+                use_kernel=use_kernel,
+                device=self.engines[0].device,
+                runtime=runtime,
+            )
 
     def route(self, q: Query) -> int:
         """Executing rank for ``q`` — the partition's ``route()``, which
@@ -480,6 +521,8 @@ class ShardedQueryEngine:
         by_rank: Dict[int, List[int]] = {}
         for i, q in enumerate(queries):
             by_rank.setdefault(self.route(q), []).append(i)
+        if self.execution == "spmd":
+            return self.end_batch(self.begin_batch(queries, by_rank))
         out: List[Optional[QueryResult]] = [None] * len(queries)
         for rank, idxs in sorted(by_rank.items()):
             results = self.engines[rank].execute_batch(
@@ -488,6 +531,112 @@ class ShardedQueryEngine:
             for i, r in zip(idxs, results):
                 out[i] = r
         return out  # type: ignore[return-value]
+
+    # ---------------- SPMD execution ----------------
+    def begin_batch(
+        self,
+        queries: Sequence[Query],
+        by_rank: Optional[Dict[int, List[int]]] = None,
+    ) -> InflightBatch:
+        """Dispatch one device-parallel microbatch WITHOUT waiting on
+        the device: per-rank prepare (control plane: cache admission,
+        stats, serve matrix — host-side and identical to loop mode),
+        then ONE rank-sharded intersect launch. The measured collective
+        rows are asserted equal, owner-for-requester, to the modeled
+        ``serve_rows`` delta this same microbatch produced — the full
+        ledger exists at dispatch, so reconciliation does not need the
+        counts. A pipelined caller may ``begin_batch`` the next
+        microbatch before ``end_batch``-ing this one."""
+        from ..distributed.spmd_runtime import ShardWork
+
+        if by_rank is None:
+            by_rank = {}
+            for i, q in enumerate(queries):
+                by_rank.setdefault(self.route(q), []).append(i)
+        rt = self.runtime
+        serve_before = rt.serve_rows.copy()
+        empty = np.zeros(0, np.int64)
+        preps: List[Optional[PreparedBatch]] = [None] * rt.p
+        shards: List[ShardWork] = []
+        for rank in range(rt.p):
+            idxs = by_rank.get(rank)
+            if not idxs:
+                shards.append(ShardWork(rank, empty, empty, {}))
+                continue
+            record: List[FetchEvent] = []
+            prep = self.engines[rank].prepare_batch(
+                [queries[i] for i in idxs], record=record
+            )
+            preps[rank] = prep
+            shards.append(self._shard_work(rank, prep, record))
+        pending = self.spmd.dispatch(shards, rt.store)
+        measured = pending.unit.rows_shipped
+        modeled = rt.serve_rows - serve_before
+        assert np.array_equal(measured, modeled), (
+            "SPMD collective traffic diverged from the modeled serve "
+            f"matrix:\nmeasured=\n{measured}\nmodeled=\n{modeled}"
+        )
+        return InflightBatch(queries, by_rank, preps, pending)
+
+    def end_batch(self, inflight: InflightBatch) -> List[QueryResult]:
+        """Reconciliation barrier: wait for the in-flight microbatch's
+        device counts, then per-rank finalize and reassemble results in
+        submission order."""
+        counts, _unit = inflight.pending.wait()
+        out: List[Optional[QueryResult]] = [None] * len(inflight.queries)
+        for rank, idxs in sorted(inflight.by_rank.items()):
+            results = self.engines[rank].finalize_batch(
+                inflight.preps[rank], counts[rank]
+            )
+            for i, r in zip(idxs, results):
+                out[i] = r
+        return out  # type: ignore[return-value]
+
+    def _shard_work(
+        self, rank: int, prep: PreparedBatch, record: List[FetchEvent]
+    ):
+        """Turn one rank's prepared microbatch into its SPMD slice:
+        local rows / cache hits / device-mirror rows stay rank-resident,
+        misses ship through the collective. Device-tier bookkeeping
+        (claim + epoch check per resident pair side) runs exactly as
+        loop mode's resident routing would, so the residency ledgers
+        stay field-for-field identical."""
+        from ..distributed.spmd_runtime import ShardWork
+
+        eng = self.engines[rank]
+        rows = prep.rows
+        held: Dict[int, np.ndarray] = {}
+        fetched: List[int] = []
+        for ev in record:
+            if ev.kind == "miss":
+                fetched.append(ev.v)
+            else:
+                held[ev.v] = rows[ev.v]
+        dev = eng.residency
+        u_lo, u_hi = prep.u_lo, prep.u_hi
+        if dev is not None and u_lo.size:
+            # the same routing (and group order) loop-mode _pair_counts
+            # applies, so the residency claim/check ledgers match.
+            _, _, groups = QueryEngine._residency_groups(u_lo, u_hi, rows)
+            for res_idx, res_v, _mat_v in groups:
+                if res_idx.size == 0:
+                    continue
+                vs = res_v[res_idx]
+                slots = QueryEngine._claim_resident(dev, vs)
+                mirror = dev.host_rows(slots)
+                widths = dev.widths[slots]
+                for i, v in enumerate(vs):
+                    v = int(v)
+                    if v not in held:
+                        held[v] = mirror[i, : int(widths[i])].copy()
+                eng.n_pairs_resident += int(res_idx.size)
+        return ShardWork(
+            rank,
+            prep.u_lo.astype(np.int64),
+            prep.u_hi.astype(np.int64),
+            held,
+            fetched,
+        )
 
     # ---------------- aggregated accounting ----------------
     @property

@@ -214,24 +214,15 @@ class MicrobatchScheduler:
         SLO policy; EDF (earliest absolute deadline, stable on submit
         order) with one — a full queue serves the most urgent work
         first. Selection previews so an engine error leaves the window
-        queued (visible, retryable), not silently dropped;
-        ``_drain_window`` removes it after success."""
+        queued (visible, retryable), not silently dropped; ``_remove``
+        commits after success."""
         if self.slo is None or len(self._pending) <= 1:
             return self._pending[: self.max_batch]
         order = sorted(range(len(self._pending)),
                        key=lambda i: (self._pending[i].deadline, i))
         return [self._pending[i] for i in sorted(order[: self.max_batch])]
 
-    def _drain_window(self) -> List[QueryResult]:
-        chunk = self._peek_window()
-        t0 = self._clock()
-        with obs_trace.span("scheduler_flush", cat="serving",
-                            n=len(chunk)):
-            results = self.engine.execute_batch([p.query for p in chunk])
-        t1 = self._clock()
-        taken = set(map(id, chunk))
-        self._pending = [p for p in self._pending if id(p) not in taken]
-        self._n_urgent -= sum(1 for p in chunk if p.urgent)
+    def _record_results(self, chunk: List[_Pending], results, t0, t1):
         self.recorder.record_wall(t1 - t0)
         self.n_batches += 1
         for p, r in zip(chunk, results):
@@ -242,15 +233,74 @@ class MicrobatchScheduler:
                             else p.deadline - p.t_submit),
             )
         obs_trace.counter("queue_depth", len(self._pending))
+
+    def _drain_window(self) -> List[QueryResult]:
+        chunk = self._peek_window()
+        t0 = self._clock()
+        with obs_trace.span("scheduler_flush", cat="serving",
+                            n=len(chunk)):
+            results = self.engine.execute_batch([p.query for p in chunk])
+        t1 = self._clock()
+        self._remove(chunk)
+        self._record_results(chunk, results, t0, t1)
         return results
+
+    def _remove(self, chunk: List[_Pending]) -> None:
+        taken = set(map(id, chunk))
+        self._pending = [p for p in self._pending if id(p) not in taken]
+        self._n_urgent -= sum(1 for p in chunk if p.urgent)
 
     def flush(self) -> List[QueryResult]:
         """Drain the queue in ``max_batch`` windows; returns all results
         in dispatch order (submission order without an SLO policy, EDF
-        order with one)."""
+        order with one). When the engine is a pipelined SPMD engine
+        (``engine.pipeline``), the host pack + collective launch of
+        window k+1 overlaps window k's in-flight device intersect —
+        ``end_batch`` is the only device sync (the trace's
+        ``spmd_overlap_wait``). The control plane stays sequential
+        host-side, so pipelined and unpipelined drains are bit-exact."""
+        if getattr(self.engine, "pipeline", False):
+            return self._flush_pipelined()
         out: List[QueryResult] = []
         while self._pending:
             out.extend(self._drain_window())
+        return out
+
+    # ---------------- pipelined drain ----------------
+    def _begin_window(self) -> tuple:
+        """Dispatch the front window without waiting on the device.
+        The ``scheduler_flush`` span covers only the host-side begin —
+        keeping spans disjoint per lane (the wait is its own span), so
+        the exported trace stays well-nested under overlap."""
+        chunk = self._peek_window()
+        t0 = self._clock()
+        with obs_trace.span("scheduler_flush", cat="serving",
+                            n=len(chunk), pipelined=True):
+            inflight = self.engine.begin_batch([p.query for p in chunk])
+        # the control plane (cache admission, serve matrix, the
+        # measured-vs-modeled reconciliation) completed inside
+        # begin_batch — the chunk is committed; only device counts
+        # remain outstanding. A begin error leaves the chunk queued.
+        self._remove(chunk)
+        return chunk, inflight, t0
+
+    def _finish_window(self, chunk, inflight, t0) -> List[QueryResult]:
+        results = self.engine.end_batch(inflight)
+        t1 = self._clock()
+        self._record_results(chunk, results, t0, t1)
+        return results
+
+    def _flush_pipelined(self) -> List[QueryResult]:
+        """Double-buffered drain: begin window k+1 before finishing
+        window k, so at most one microbatch is in flight on device
+        while the next one packs on host."""
+        out: List[QueryResult] = []
+        prev = None
+        while self._pending or prev is not None:
+            nxt = self._begin_window() if self._pending else None
+            if prev is not None:
+                out.extend(self._finish_window(*prev))
+            prev = nxt
         return out
 
     def _shed_stale(self, now: float) -> None:

@@ -26,8 +26,9 @@ device tier and the query engines' counts. ``use_kernel=None`` keys the
 route of all three on that device (the kernels on CUDA, the plain host
 route on the CPU). The reference keeps its stream on the host whenever
 ``use_kernel`` is left at None; the integers are the same either way.
-``execution="spmd"`` and ``pipeline=True`` are not ported yet and raise
-``NotImplementedError`` (ROADMAP Queue A item 2, the SPMD plane).
+``execution="spmd"`` (with ``pipeline``) runs the cross-rank views as one
+SPMD execution unit per microbatch on the same device
+(``distributed/spmd_runtime.py``).
 """
 from __future__ import annotations
 
@@ -90,12 +91,6 @@ class LiveQueryService:
             "pipeline double-buffers SPMD microbatches — pass "
             "execution='spmd'"
         )
-        if execution == "spmd":
-            raise NotImplementedError(
-                "not ported yet: execution='spmd' / pipeline=True need "
-                "distributed/spmd_runtime.py (ROADMAP Queue A item 2, the "
-                "SPMD plane)"
-            )
         self.device = resolve_device(device)
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
@@ -242,14 +237,17 @@ class LiveQueryService:
     def metrics_registry(self, *, tracer=None):
         """One queryable snapshot of every ledger this service owns:
         per-rank provider/cache stats, device tier, serve matrix +
-        placement gauges and serving latency (overall and per SLO
-        class). Pass the active ``Tracer`` to fold per-phase wall time
-        in too."""
+        placement gauges, serving latency (overall and per SLO class),
+        and — under SPMD execution — the measured ``CollectiveLedger``
+        with the measured-vs-modeled RMA reconciliation. Pass the
+        active ``Tracer`` to fold per-phase wall time in too."""
         from ..obs.metrics import (
             MetricRegistry,
             fold_trace,
+            record_collective_ledger,
             record_coherence_report,
             record_latency,
+            record_reconciliation,
             record_runtime,
             record_tenancy,
         )
@@ -259,6 +257,10 @@ class LiveQueryService:
         record_latency(reg, self.scheduler.recorder)
         if self.quotas is not None:
             record_tenancy(reg, self.quotas, self.runtime)
+        spmd = getattr(self.engine, "spmd", None)
+        if spmd is not None:
+            record_collective_ledger(reg, spmd.ledger)
+            record_reconciliation(reg, self.runtime, spmd.ledger)
         if self.coherence is not None:
             record_coherence_report(reg, self.coherence.report)
         if tracer is not None:

@@ -31,7 +31,7 @@ same arithmetic as ``lcc_scores`` (bit-exact vs a recount).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -88,9 +88,13 @@ class StreamingLCCEngine:
     ``resolve_device``: raises when missing; ``"cpu"`` runs their plain
     torch versions). An attached device tier must live on the same device.
 
-    ``execution="spmd"`` and ``pipeline=True`` (the rank-sharded SPMD
-    executor of ``distributed/spmd_runtime.py``) are not ported yet and
-    raise ``NotImplementedError``.
+    ``execution="spmd"`` runs the per-rank shards as ONE execution unit per
+    batch phase (``SpmdIntersectExecutor``, on the same device): remote rows
+    ship owner -> rank through the serve block (B5) and the old∩old counts
+    come back from the pair-count program (B6), cross-checked against the
+    host membership masks — bit-exact vs ``execution="loop"`` at any p.
+    ``pipeline=True`` (SPMD only) dispatches a batch's insert phase before
+    its delete phase's counts are waited for.
     """
 
     def __init__(
@@ -107,12 +111,10 @@ class StreamingLCCEngine:
         device="cuda",
     ):
         assert execution in ("loop", "spmd"), execution
-        if execution == "spmd" or pipeline:
-            raise NotImplementedError(
-                "not ported yet: execution='spmd' / pipeline=True need "
-                "distributed/spmd_runtime.py (ROADMAP Queue A item 2, the "
-                "SPMD plane)"
-            )
+        assert not pipeline or execution == "spmd", (
+            "pipeline overlaps the two SPMD phase dispatches of a batch "
+            "— pass execution='spmd'"
+        )
         self.device = resolve_device(device)
         self.store = DynamicCSR.from_csr(
             csr, compact_threshold=compact_threshold
@@ -127,6 +129,26 @@ class StreamingLCCEngine:
         self.runtime = runtime
         if runtime is not None:
             runtime.bind_store(self.store)
+        assert execution == "loop" or runtime is not None, (
+            "SPMD execution shards the worklist by the runtime's owner "
+            "partition — attach a ShardedRuntime (or coherence layer)"
+        )
+        self.execution = execution
+        self.pipeline = bool(pipeline)
+        self.spmd = None
+        if execution == "spmd":
+            from ..distributed.spmd_runtime import SpmdIntersectExecutor
+
+            # runtime= registers the executor's resident-buffer
+            # invalidation on the runtime's coherence fanout, so
+            # end-of-batch invalidates keep the buffer's mirror fresh.
+            self.spmd = SpmdIntersectExecutor(
+                runtime.part,
+                runtime.n,
+                use_kernel=use_kernel,
+                device=self.device,
+                runtime=runtime,
+            )
         self.shard_pairs = np.zeros(
             runtime.p if runtime is not None else 1, np.int64
         )  # row pairs processed per owner rank (worklist balance)
@@ -170,19 +192,36 @@ class StreamingLCCEngine:
         ins, dele, n_noop = normalize_batch(batch, self.store)
         delta6 = np.zeros(self.n, np.int64)
         delta_pairs = 0
+        pipelined = (
+            self.pipeline and ins.shape[0] > 0 and dele.shape[0] > 0
+        )
         if dele.shape[0]:
             # time-reverse: destroyed triangles == triangles an insertion
             # of ``dele`` into the post-delete graph would create.
             self.store.delete_edges(dele)
             self._sync_device_after_delete(dele)
-            delta_pairs += self._accumulate_insertion_delta6(
-                dele, delta6, sign=-1
-            )
-        if ins.shape[0]:
-            delta_pairs += self._accumulate_insertion_delta6(
-                ins, delta6, sign=+1
-            )
+        if pipelined:
+            # double-buffered batch: both phases read the same store
+            # state (post-delete, pre-insert), so the insert phase's
+            # host pack + launch overlaps the delete phase's in-flight
+            # device counts. The host-side scatter math of each phase
+            # runs at its finish — integer scatter-adds, so the result
+            # is bit-exact vs the sequential path.
+            fin_del = self._delta6_begin(dele, sign=-1)
+            fin_ins = self._delta6_begin(ins, sign=+1)
             self.store.insert_edges(ins)
+            delta_pairs += fin_del(delta6)
+            delta_pairs += fin_ins(delta6)
+        else:
+            if dele.shape[0]:
+                delta_pairs += self._accumulate_insertion_delta6(
+                    dele, delta6, sign=-1
+                )
+            if ins.shape[0]:
+                delta_pairs += self._accumulate_insertion_delta6(
+                    ins, delta6, sign=+1
+                )
+                self.store.insert_edges(ins)
 
         assert (delta6 % 6 == 0).all(), "triangle weights must close to 6"
         dt = delta6 // 6
@@ -268,13 +307,18 @@ class StreamingLCCEngine:
         """The delta intersections of this batch read POST-delete rows:
         patch the touched resident rows in every device view now so the
         device tier serves the same state mid-batch (the end-of-batch
-        coherence fanout re-syncs after the inserts land). The patch and
-        the kernels that read it run on one stream, so they are ordered."""
+        coherence fanout re-syncs after the inserts land), and drop the
+        SPMD executor's resident-buffer copies of the same ids — a stale
+        buffer row would break the loop-vs-SPMD bit-exactness contract.
+        The patch and the kernels that read it run on one stream, so they
+        are ordered."""
         changed = np.unique(dele.ravel())
         if self.runtime is not None and self.runtime.has_device_tier:
             ids = changed.tolist()
             for dv in self.runtime.device_views():
                 dv.notify_batch(ids)
+        if self.spmd is not None:
+            self.spmd.invalidate(changed)
 
     @staticmethod
     def _batch_adjacency(pairs: np.ndarray) -> Dict[int, np.ndarray]:
@@ -289,6 +333,27 @@ class StreamingLCCEngine:
             d_adj[x] = np.array(sorted(d_adj[x]), np.int64)
         return d_adj
 
+    def _delta6_begin(self, pairs: np.ndarray, *, sign: int):
+        """Dispatch one phase's SPMD unit WITHOUT waiting: all host row
+        materialization happens here (against the current post-delete /
+        pre-insert store), so the returned ``finish(delta6) -> n_pairs``
+        closure only waits on the device counts and runs the host scatter
+        math."""
+        assert self.spmd is not None, "pipelining is SPMD-only"
+        d_adj = self._batch_adjacency(pairs)
+        owners = self.runtime.part.owner(pairs[:, 0])
+        shards = [
+            pairs[owners == rank] for rank in range(self.runtime.p)
+        ]
+        pending, rowdata = self._delta6_spmd_dispatch(shards, d_adj)
+
+        def finish(delta6: np.ndarray) -> int:
+            return self._delta6_spmd_finish(
+                pending, shards, rowdata, d_adj, delta6, sign=sign
+            )
+
+        return finish
+
     def _accumulate_insertion_delta6(
         self, pairs: np.ndarray, delta6: np.ndarray, *, sign: int
     ) -> int:
@@ -298,7 +363,8 @@ class StreamingLCCEngine:
         Returns the number of row pairs sent through delta-intersect."""
         d_adj = self._batch_adjacency(pairs)
 
-        if self.runtime is not None and self.runtime.p > 1:
+        spmd = self.spmd is not None
+        if self.runtime is not None and (self.runtime.p > 1 or spmd):
             # shard the delta worklist by owner rank of the first
             # endpoint; per-shard scatter-adds are integer, so the sum
             # over shards is bit-exact vs the single-shard path.
@@ -306,6 +372,8 @@ class StreamingLCCEngine:
             shards = [
                 pairs[owners == rank] for rank in range(self.runtime.p)
             ]
+            if spmd:
+                return self._delta6_spmd(shards, d_adj, delta6, sign=sign)
             total = 0
             for rank, shard in enumerate(shards):
                 if shard.shape[0] == 0:
@@ -318,6 +386,105 @@ class StreamingLCCEngine:
         n = self._delta6_for_shard(pairs, d_adj, delta6, sign=sign)
         self.shard_pairs[0] += n
         return n
+
+    def _delta6_spmd(
+        self,
+        shards,
+        d_adj: Dict[int, np.ndarray],
+        delta6: np.ndarray,
+        *,
+        sign: int,
+    ) -> int:
+        """SPMD variant of the per-shard loop: every shard's old∩old counts
+        run as ONE execution unit — rows owned by the executing rank (or
+        resident in the device tier's mirror) stay rank-local, remote rows
+        ship owner -> requester through the serve block — then the
+        per-shard host math (masks, wedge corrections, scatters) proceeds
+        unchanged against those counts. The engine's kernel-vs-mask
+        cross-check still runs, so SPMD counts are verified against the
+        host membership masks on every batch."""
+        pending, rowdata = self._delta6_spmd_dispatch(shards, d_adj)
+        return self._delta6_spmd_finish(
+            pending, shards, rowdata, d_adj, delta6, sign=sign
+        )
+
+    def _delta6_spmd_dispatch(self, shards, d_adj: Dict[int, np.ndarray]):
+        """Pack every shard and launch the unit; all store reads happen
+        here, so the in-flight unit is immune to later store mutations.
+        Returns ``(PendingUnit, rowdata)``."""
+        from ..distributed.spmd_runtime import ShardWork
+
+        rt = self.runtime
+        store = self.store
+        empty = np.zeros(0, np.int64)
+        rowdata = [None] * rt.p
+        works = []
+        for rank, shard in enumerate(shards):
+            if shard.shape[0] == 0:
+                works.append(ShardWork(rank, empty, empty, {}))
+                continue
+            rd = self._shard_rows(shard, rank)
+            rowdata[rank] = rd
+            rows_u, rows_v, res_u, res_v, w_old = rd
+            u, v = shard[:, 0], shard[:, 1]
+            held: Dict[int, np.ndarray] = {}
+            fetched: List[int] = []
+            dev = rt.device_for(rank)
+            resident = set(u[res_u].tolist()) | set(v[res_v].tolist())
+            for x in np.unique(np.concatenate([u, v])):
+                x = int(x)
+                if x in resident:
+                    # content the loop path would read: the device tier's
+                    # persistent mirror row, not a store merge
+                    slot = int(dev.slot_of(x))
+                    w_true = int(dev.widths[slot])
+                    held[x] = dev.host_rows(
+                        np.array([slot])
+                    )[0, :w_true].copy()
+                elif int(rt.part.owner(x)) == rank:
+                    held[x] = np.asarray(store.row(x))
+                else:
+                    fetched.append(x)
+            works.append(
+                ShardWork(
+                    rank,
+                    u.astype(np.int64),
+                    v.astype(np.int64),
+                    held,
+                    fetched,
+                )
+            )
+        return self.spmd.dispatch(works, store), rowdata
+
+    def _delta6_spmd_finish(
+        self,
+        pending,
+        shards,
+        rowdata,
+        d_adj: Dict[int, np.ndarray],
+        delta6: np.ndarray,
+        *,
+        sign: int,
+    ) -> int:
+        """Reconciliation barrier of one dispatched phase: wait for the
+        device counts, then per-shard host math (masks, corrections,
+        scatters)."""
+        counts, _unit = pending.wait()
+        total = 0
+        for rank, shard in enumerate(shards):
+            if shard.shape[0] == 0:
+                continue
+            total += self._delta6_for_shard(
+                shard,
+                d_adj,
+                delta6,
+                sign=sign,
+                rank=rank,
+                rowdata=rowdata[rank],
+                oo_counts=counts[rank],
+            )
+            self.shard_pairs[rank] += shard.shape[0]
+        return total
 
     def _shard_rows(self, pairs: np.ndarray, rank: int = 0):
         """Materialize one shard's old-neighborhood rows (the executing
@@ -360,12 +527,18 @@ class StreamingLCCEngine:
         *,
         sign: int,
         rank: int = 0,
+        rowdata=None,
+        oo_counts: Optional[np.ndarray] = None,
     ) -> int:
-        """One shard's worth of batched intersections (see caller)."""
+        """One shard's worth of batched intersections (see caller).
+        ``oo_counts`` injects old∩old counts computed elsewhere (the SPMD
+        executor) — they are still cross-checked against the host
+        membership masks below."""
         with obs_trace.span("intersect_kernel", rank=rank, cat="streaming",
                             pairs=pairs.shape[0]):
             return self._delta6_for_shard_impl(
                 pairs, d_adj, delta6, sign=sign, rank=rank,
+                rowdata=rowdata, oo_counts=oo_counts,
             )
 
     def _delta6_for_shard_impl(
@@ -376,13 +549,17 @@ class StreamingLCCEngine:
         *,
         sign: int,
         rank: int = 0,
+        rowdata=None,
+        oo_counts: Optional[np.ndarray] = None,
     ) -> int:
         store = self.store
         sent = store.n
         k = pairs.shape[0]
         u, v = pairs[:, 0], pairs[:, 1]
 
-        rows_u, rows_v, res_u, res_v, w_old = self._shard_rows(pairs, rank)
+        if rowdata is None:
+            rowdata = self._shard_rows(pairs, rank)
+        rows_u, rows_v, res_u, res_v, w_old = rowdata
         dev = (
             self.runtime.device_for(rank)
             if self.runtime is not None
@@ -395,7 +572,16 @@ class StreamingLCCEngine:
         # old ∩ old — the wide hot path: kernels for the counts,
         # membership masks for the identities of the closing vertices.
         mask_oo = delta_intersect_masks(rows_u, rows_v, sentinel=sent)
-        if self.use_kernel:
+        if oo_counts is not None:
+            c_oo = np.asarray(oo_counts, np.int64)
+            assert np.array_equal(c_oo, mask_oo.sum(1)), (
+                "SPMD counts disagree with membership masks"
+            )
+            if dev is not None:
+                self.oo_resident_pairs += int(
+                    np.count_nonzero(res_u | res_v)
+                )
+        elif self.use_kernel:
             c_oo = self._oo_counts(
                 u, v, rows_u, rows_v, res_u, res_v, dev, sent
             )

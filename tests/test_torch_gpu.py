@@ -523,3 +523,246 @@ def test_query_service_on_card_matches_plain_route(cross_rank):
     assert ic.launches() > 0 and ri.launches("vs_rows") > 0
     assert kernel["pairs"][2] > 0
     assert kernel == run(False)
+
+
+def _spmd_unit(rng, p, h, w, serve_cfg, f_pad, e_cfg, universe=None):
+    """A random SPMD unit: the resident buffer ``[p, H, W]`` (pad slot
+    last), serve slots ``[p, p, S_tot]`` (rows cut to their rung, phantom
+    positions at the pad slot), and a ``[p, E_tot]`` worklist over
+    ``[rows | fetched]`` whose sub-pairs fit their bucket's width, with
+    valid lengths and a mask (phantoms at the pad slot, length 0)."""
+    universe = universe or SENT
+    rows = np.full((p, h, w), SENT, np.int32)
+    lens = np.zeros((p, h), np.int32)
+    for k in range(p):
+        for s in range(h - 1):
+            n = int(rng.integers(0, w + 1))
+            rows[k, s, :n] = np.sort(rng.choice(universe, n, replace=False))
+            lens[k, s] = n
+    serve = []
+    for s_b, w_b in serve_cfg:
+        seg = np.full((p, p, s_b), h - 1, np.int32)
+        for k in range(p):
+            fits = np.flatnonzero(lens[k, : h - 1] <= w_b)
+            for j in range(p):
+                m = int(rng.integers(0, s_b + 1))
+                if fits.size and m:
+                    seg[k, j, :m] = rng.choice(fits, m)
+        serve.append(seg)
+    serve_idx = np.concatenate(serve, axis=2)
+    # the fetched rows' lengths follow the block's layout
+    flen = np.zeros((p, f_pad), np.int32)
+    for j in range(p):
+        base = off = 0
+        for s_b, _ in serve_cfg:
+            for k in range(p):
+                flen[j, base + k * s_b: base + (k + 1) * s_b] = \
+                    lens[k, serve_idx[k, j, off: off + s_b]]
+            base += p * s_b
+            off += s_b
+    all_len = np.concatenate([lens, flen], axis=1)
+    a_idx, b_idx, mask = [], [], []
+    for e_b, w_p in e_cfg:
+        a = np.full((p, e_b), h - 1, np.int32)
+        b = np.full((p, e_b), h - 1, np.int32)
+        m = np.zeros((p, e_b), bool)
+        for j in range(p):
+            ok = np.flatnonzero(all_len[j] <= w_p)
+            real = int(rng.integers(0, e_b + 1))
+            a[j, :real] = rng.choice(ok, real)
+            b[j, :real] = rng.choice(ok, real)
+            m[j, :real] = True
+        a_idx.append(a)
+        b_idx.append(b)
+        mask.append(m)
+    a_idx, b_idx, mask = (np.concatenate(x, axis=1)
+                          for x in (a_idx, b_idx, mask))
+    rank = np.arange(p)[:, None]
+    a_len = np.where(mask, all_len[rank, a_idx], 0).astype(np.int32)
+    b_len = np.where(mask, all_len[rank, b_idx], 0).astype(np.int32)
+    return rows, serve_idx, (a_idx, b_idx, a_len, b_len, mask)
+
+
+@pytest.mark.gpu
+def test_spmd_plane_kernels_on_card():
+    """B5 (``serve_block``) and B6 (``pair_counts``) against their plain
+    versions on the card, bit for bit: p 1 and 8, every rung of the
+    ladder, phantom serve and pair positions, the widest rung at W, a W
+    that is no multiple of 4 (the kernel's scalar copies), hub-like rows
+    sharing many ids, an all-phantom worklist; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.kernels import spmd_plane as sp
+
+    rng = np.random.default_rng(8)
+    cases = [
+        (1, 8, 16, [(2, 16)], 4, [(8, 16)], None),
+        (8, 24, 512, [(4, 16), (2, 64), (2, 256), (1, 512)], 128,
+         [(16, 16), (8, 64), (8, 256), (8, 512)], None),
+        (8, 12, 2048, [(1, 16), (2, 2048)], 32, [(8, 16), (16, 2048)], 3000),
+        (4, 6, 6, [(3, 6)], 16, [(8, 6)], None),
+    ]
+    sp.reset_launches()
+    for p, h, w, serve_cfg, f_pad, e_cfg, universe in cases:
+        rows, serve_idx, lists = _spmd_unit(rng, p, h, w, serve_cfg, f_pad,
+                                            e_cfg, universe)
+        r = torch.from_numpy(rows).cuda()
+        s = torch.from_numpy(serve_idx).cuda()
+        got = sp.serve_block(r, s, serve_cfg, f_pad, sentinel=SENT)
+        torch.cuda.synchronize()
+        want = sp.serve_block_ref(r, s, serve_cfg, f_pad, sentinel=SENT)
+        assert got.dtype == torch.int32 and torch.equal(got, want), (p, w)
+        dl = [torch.from_numpy(x).cuda() for x in lists]
+        cnt = sp.pair_counts(r, got, *dl, pair_cfg=e_cfg, sentinel=SENT)
+        torch.cuda.synchronize()
+        want_cnt = sp.pair_counts_ref(r, got, *dl, pair_cfg=e_cfg,
+                                      sentinel=SENT)
+        assert cnt.dtype == torch.int32 and torch.equal(cnt, want_cnt)
+        assert int(cnt[~dl[4]].abs().sum()) == 0
+    assert sp.launches() == {"serve_block": len(cases),
+                             "pair_counts": len(cases)}
+    # an all-phantom worklist writes zeros
+    z = torch.zeros((2, 16), dtype=torch.int32, device="cuda")
+    r = torch.full((2, 4, 8), SENT, dtype=torch.int32, device="cuda")
+    out = sp.pair_counts(r, r, z, z, z, z, z.bool(), pair_cfg=[(16, 8)],
+                         sentinel=SENT)
+    assert torch.equal(out, torch.zeros_like(out))
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.serve_block(r.transpose(1, 2), torch.zeros(
+            (2, 2, 2), dtype=torch.int32, device="cuda"), [(2, 4)], 4,
+            sentinel=SENT)
+
+
+def _spmd_service(device, p, hub, pipeline):
+    from repro_torch.core.partition import partition_hub
+    from repro_torch.graphs.rmat import rmat_graph
+    from repro_torch.serving import LiveQueryService, read_write_stream
+
+    csr = rmat_graph(9, 16, seed=0)
+    svc = LiveQueryService(
+        csr, p=p, cross_rank=True, execution="spmd", pipeline=pipeline,
+        partition=partition_hub(csr.degrees, p) if hub else None,
+        device_slots=32, device_width=256, device=device)
+    answers = []
+    for ev in read_write_stream(lambda: svc.store.degrees, csr.n, 16,
+                                write_frac=0.25, queries_per_event=48,
+                                seed=2):
+        if ev.is_update:
+            svc.apply_updates(ev.update)
+            continue
+        for r in svc.scheduler.run(ev.queries):
+            ids = None if r.ids is None else r.ids.tolist()
+            answers.append((r.query, type(r.value), r.value, ids))
+    svc.verify()
+    led = svc.engine.spmd.ledger.to_dict()
+    for k in ("device_wall_s", "overlap_wait_s"):
+        led.pop(k)
+    return {"answers": answers, "t": svc.stream.t.tolist(),
+            "lcc": svc.stream.lcc.tolist(), "ledger": led,
+            "serve_rows": svc.runtime.serve_rows.tolist(),
+            "stats": [vars(st) for st in svc.runtime.stats]}
+
+
+def _spmd_stream(device, p, pipeline):
+    from repro_torch.graphs.rmat import rmat_stream
+    from repro_torch.streaming import (StreamingCacheCoherence,
+                                       StreamingLCCEngine)
+
+    n = 1 << 10
+    coh = StreamingCacheCoherence(n, np.zeros(n, np.int64), p=p,
+                                  cache_rows=64, device=device)
+    eng = StreamingLCCEngine.empty(n, coherence=coh, execution="spmd",
+                                   pipeline=pipeline, device=device)
+    eng.runtime.enable_device_tier(64, 256)
+    out = [vars(eng.apply_batch(b)) for b in rmat_stream(
+        10, 16, batch_size=2048, delete_frac=0.2, seed=3)]
+    eng.verify()
+    led = eng.spmd.ledger.to_dict()
+    for k in ("device_wall_s", "overlap_wait_s"):
+        led.pop(k)
+    return {"batches": out, "t": eng.t.tolist(), "lcc": eng.lcc.tolist(),
+            "ledger": led, "shard_pairs": eng.shard_pairs.tolist()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hub", [False, True])
+def test_spmd_executor_on_card_matches_cpu(hub):
+    """The SPMD executor on the card (B5 and B6) against the same run on
+    the CPU (their plain versions), p = 8, pipelined: a query service
+    (1D and hub partition) and a stream, every answer, the stream state
+    and every ledger counter equal; both kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.kernels import spmd_plane as sp
+
+    sp.reset_launches()
+    card = _spmd_service("cuda", 8, hub, True)
+    assert sp.launches()["serve_block"] > 0
+    assert sp.launches()["pair_counts"] > 0
+    assert card == _spmd_service("cpu", 8, hub, True)
+    if not hub:
+        sp.reset_launches()
+        card = _spmd_stream("cuda", 8, True)
+        assert min(sp.launches().values()) > 0
+        assert card == _spmd_stream("cpu", 8, True)
+
+
+@pytest.mark.gpu
+def test_spmd_dispatch_never_synchronises():
+    """``dispatch()`` of real units (a p = 8 stream's) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronising call in
+    it raises; ``wait()`` then gives the counts the CPU gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.distributed import spmd_runtime as spmd
+
+    units = []
+    real = spmd.SpmdIntersectExecutor.dispatch
+
+    def record(ex, shards, store):
+        copies = [spmd.ShardWork(s.rank, s.pair_a.copy(), s.pair_b.copy(),
+                                 {v: np.array(r) for v, r in
+                                  s.rows_held.items()}, list(s.fetched_ids))
+                  for s in shards]
+        units.append((copies, {v: np.array(store.row(v))
+                               for s in shards for v in s.fetched_ids}))
+        return real(ex, shards, store)
+
+    spmd.SpmdIntersectExecutor.dispatch = record
+    try:
+        _spmd_stream("cpu", 8, False)
+    finally:
+        spmd.SpmdIntersectExecutor.dispatch = real
+    assert len(units) >= 4
+
+    class Rows:
+        def __init__(self, rows):
+            self.rows = rows
+
+        def row(self, v):
+            return self.rows[int(v)]
+
+    from repro_torch.core.partition import partition_1d
+
+    part = partition_1d(1 << 10, 8)
+    on_card = spmd.SpmdIntersectExecutor(part, 1 << 10, device="cuda")
+    on_cpu = spmd.SpmdIntersectExecutor(part, 1 << 10, device="cpu")
+    pending = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for shards, rows in units:
+            # the recorded run's coherence fanout is not replayed: drop
+            # every mapped row, so each unit patches its rows in place
+            on_card.invalidate(None)
+            pending.append(on_card.dispatch(shards, Rows(rows)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (shards, rows), pend in zip(units, pending):
+        got, unit = pend.wait()
+        on_cpu.invalidate(None)
+        want, ref_unit = on_cpu.run(shards, Rows(rows))
+        for g, w in zip(got, want):
+            assert g.dtype == np.int64 and np.array_equal(g, w)
+        assert unit.to_dict()["bytes_on_wire"] == \
+            ref_unit.to_dict()["bytes_on_wire"]

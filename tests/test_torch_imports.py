@@ -84,6 +84,7 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.models.gnn.pna", "repro_torch.train.optimizer",
     "repro_torch.train.checkpoint", "repro_torch.distributed",
     "repro_torch.distributed.fault_tolerance", "repro_torch.launch.train",
+    "repro_torch.distributed.spmd_runtime", "repro_torch.kernels.spmd_plane",
     "repro_torch.obs.cachescope", "repro_torch.obs.metrics",
     "repro_torch.obs.trace",
     "repro_torch.streaming", "repro_torch.streaming.coherence",
@@ -124,8 +125,10 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     import torch
 
     from repro_torch.core import async_engine, rma, tric_baseline
+    from repro_torch.core.partition import partition_1d
     from repro_torch.core.runtime import ShardedRuntime
     from repro_torch.device import ResidencyManager
+    from repro_torch.distributed.spmd_runtime import SpmdIntersectExecutor
     from repro_torch.graphs.datasets import powerlaw_graph
     from repro_torch.kernels import delta_intersect, ops, point_query
     from repro_torch.kernels.resident_intersect import (
@@ -169,9 +172,17 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    # the SPMD plane is refused before any graph is built or device asked
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+    # the SPMD plane runs where every other path runs: not here by default
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         query_serve.main(["--smoke", "--spmd", "--ranks", "2"])
+    for call in (
+        lambda: stream_run.main(["--scale", "6", "--spmd", "--pipeline"]),
+        lambda: SpmdIntersectExecutor(partition_1d(8, 2), 8),
+        lambda: StreamingLCCEngine(g, execution="spmd",
+                                   runtime=ShardedRuntime(None, 2, n=g.n)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
     # the host path of the ragged-pair entry touches no device
     assert point_query.batched_pair_counts(
         [rows[0]], [rows[0]], sentinel=9).tolist() == [2]

@@ -572,23 +572,64 @@ def test_kernel_route_calls_b1_and_b3_wrappers(monkeypatch):
 
 
 def test_spmd_and_pipeline_not_ported():
+    for flags in ([], ["--pipeline"]):
+        _spmd_launcher_matches_reference(flags)
+
+
+def _spmd_launcher_matches_reference(flags):
+    """The SPMD plane runs (it raised before it was ported): the engine,
+    the service and ``query_serve --smoke --spmd --ranks 2 [--pipeline]``
+    on the CPU, every printed line equal to the reference's launcher run
+    in a subprocess on forced host devices (times and rates excepted)."""
+    import os
+    import subprocess
+    import sys
+
     from repro_torch.core.runtime import ShardedRuntime
     from repro_torch.launch import query_serve
     from repro_torch.serving import LiveQueryService, ShardedQueryEngine
     from repro_torch.streaming import DynamicCSR
 
+    pipeline = "--pipeline" in flags
     csr = Side("plain").graph(20, 3, seed=0)
     store = DynamicCSR.from_csr(csr)
     rt = ShardedRuntime(store, 2)
-    for kw in ({"execution": "spmd"}, {"pipeline": True}):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            ShardedQueryEngine(store, rt, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        LiveQueryService(csr, p=2, cross_rank=True, execution="spmd",
-                         device="cpu")
-    for flags in (["--spmd", "--ranks", "2"], ["--spmd", "--pipeline"]):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            query_serve.main(["--smoke", "--device", "cpu"] + flags)
+    eng = ShardedQueryEngine(store, rt, device="cpu", execution="spmd",
+                             pipeline=pipeline)
+    assert eng.spmd is not None and eng.pipeline is pipeline
+    svc = LiveQueryService(csr, p=2, cross_rank=True, execution="spmd",
+                           pipeline=pipeline, device="cpu")
+    assert svc.engine.spmd.device.type == "cpu"
+
+    argv = ["--smoke", "--spmd", "--ranks", "2"] + flags
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    env.pop("XLA_FLAGS", None)  # the launcher forces its host devices
+    r = subprocess.run([sys.executable, "-m", "repro.launch.query_serve",
+                        *argv], capture_output=True, text=True, env=env,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    res = {}
+    with contextlib.redirect_stdout(buf):
+        assert query_serve.main(argv + ["--device", "cpu"], result=res) == 0
+    got = buf.getvalue()
+    assert "SPMD device mesh" in got and "EXACT match" in got
+    assert got.strip().splitlines()[-1].startswith("verified: ")
+    assert _spmd_lines(got) == _spmd_lines(r.stdout)
+    led = res["svc"].engine.spmd.ledger
+    assert led.n_collectives > 0 and led.total_rows > 0
+
+
+def _spmd_lines(text):
+    """The launcher's lines with times and rates masked (the SPMD lines'
+    device and overlap-wait seconds too)."""
+    text = re.sub(r"on-device in [0-9.]+s", "on-device in <t>", text)
+    text = re.sub(r"overlap wait [0-9.]+s", "overlap wait <t>", text)
+    return _launch_lines(text, False)
 
 
 # --------------------------------------------------------------------------

@@ -370,11 +370,25 @@ def test_engine_from_empty_with_random_batches_matches():
 
 
 def test_engine_spmd_and_pipeline_not_ported():
-    g = CSRGraph.from_reference(ref_powerlaw_graph(20, 3, seed=0))
-    rt = ShardedRuntime(None, 2, n=g.n)
-    for kw in ({"execution": "spmd", "runtime": rt}, {"pipeline": True}):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            StreamingLCCEngine(g, device="cpu", **kw)
+    """The SPMD engine runs (it raised before it was ported): pipelined or
+    not, batch by batch equal to the reference's loop engine over the same
+    2-rank runtime, its counts cross-checked against the host masks."""
+    g_ref = ref_powerlaw_graph(60, 4, seed=0)
+    g = CSRGraph.from_reference(g_ref)
+    for pipeline in (False, True):
+        rt = ShardedRuntime(None, 2, n=g.n)
+        port = StreamingLCCEngine(g, execution="spmd", runtime=rt,
+                                  pipeline=pipeline, device="cpu")
+        ref = RefEngine(g_ref, runtime=RefRuntime(None, 2, n=g.n))
+        rng = np.random.default_rng(7)
+        for _ in range(4):
+            rb, pb = batch_pair(rng, 60, 40)
+            same_fields(port.apply_batch(pb), ref.apply_batch(rb))
+            same_array(port.t, ref.t)
+            same_array(port.lcc, ref.lcc)
+        assert port.spmd.ledger.n_pairs == port.delta_pairs_total > 0
+        assert port.spmd.ledger.n_collectives > 0
+        port.verify()
 
 
 # --------------------------------------------------------------------------
@@ -417,5 +431,42 @@ def test_stream_run_routes_cpu_match_reference(capsys):
 
 
 def test_stream_run_spmd_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        stream_run.main(["--scale", "6", "--spmd", "--device", "cpu"])
+    """``stream_run --spmd --pipeline --device cpu`` runs (it raised
+    before the SPMD plane was ported): every printed line equal to the
+    reference's launcher run in a subprocess on forced host devices, times
+    and rates excepted."""
+    import os
+    import re
+    import subprocess
+    import sys
+
+    argv = ["--scale", "8", "--batches", "4", "--p", "4", "--spmd",
+            "--pipeline"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    env.pop("XLA_FLAGS", None)  # the launcher forces its host devices
+    r = subprocess.run([sys.executable, "-m", "repro.launch.stream_run",
+                        *argv], capture_output=True, text=True, env=env,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    res = {}
+    with contextlib.redirect_stdout(buf):
+        assert stream_run.main(argv + ["--device", "cpu"], result=res) == 0
+    got = buf.getvalue()
+
+    def norm(text):
+        text = re.sub(r"[0-9,.]+ upd/s", "", text)
+        text = re.sub(r"in [0-9.]+s", "", text)
+        text = re.sub(r"overlap wait [0-9.]+s", "", text)
+        return [ln for ln in text.splitlines() if not ln.startswith("R-MAT")]
+
+    assert norm(got) == norm(r.stdout)
+    assert got.splitlines()[0].endswith("device=cpu  [SPMD device mesh]")
+    assert got.strip().splitlines()[-1] == (
+        "final state verified bit-exact vs from-scratch recount")
+    eng = res["engine"]
+    assert len(res["batches"]) == 4 and eng.spmd.ledger.n_collectives > 0
