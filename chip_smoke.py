@@ -88,14 +88,19 @@ JSON object on a line of its own:
            against the plain route (``use_kernel=False``): answers, stream
            state, provider and tier stats and pair counters bit for bit
   spmd     the SPMD data plane (``distributed/spmd_runtime.py``, B5
-           ``serve_block`` and B6 ``pair_counts``): (a) both kernels
-           against their plain versions, whole, tolerance 0, on edge units
-           (the empty unit, pairs with no serve traffic: the cached
-           sentinel block, a buffer of W = 32 that clips the ladder,
-           phantom positions) and on units captured from the runs below
-           (the largest unit of the S14 stream, the S12 hub partition's
-           first units, a window of the S16 service), each timed beside its
-           plain version, its bound and (B5) ``index_select + F.pad + cat``;
+           ``serve_landing`` and B6 ``pair_counts_landed``, the executor's;
+           the block kernels ``serve_block`` and ``pair_counts`` beside
+           them): (a) every kernel against the plain versions, whole,
+           tolerance 0 (the landing against ``serve_block_ref``'s block),
+           on edge units (the empty unit, pairs with no serve traffic: the
+           empty landing, a buffer of W = 32 that clips the ladder, phantom
+           positions) and on units captured from the runs below (the
+           largest unit of the S14 stream, the S12 hub partition's first
+           units, a window of the S16 service), each timed (from Python and
+           in a CUDA graph) beside its plain version, its bound, a library
+           composite (``repeat_interleave + index_select`` for the landing,
+           ``index_select + F.pad + cat`` for the block) and, with a parent
+           checkout's sources in ``build/parent/``, the parent's B6;
            (b) ``stream_run`` at the stream phase's argv with ``--spmd
            --pipeline``: every ``BatchResult``, ``t`` and ``lcc`` equal to
            the stream phase's loop run, verified, the ledger's pairs equal
@@ -105,7 +110,9 @@ JSON object on a line of its own:
            (split-hub fragments shipped; 256 queries), and S16 at (c)'s argv
            with ``--ranks 8``, 256 queries on the SPMD route and on the loop
            route, every answer checked as in ``query_serve`` (c), measured
-           == modeled, q/s, p99, peak memory and the ledger; (d) the first 4
+           == modeled, q/s, p99, peak memory beyond the service's start,
+           the ledger and the ``all_to_all`` spans' ``landed_bytes``
+           (equal to their payload unit by unit); (d) the first 4
            units of (c)'s first run dispatched under
            ``torch.cuda.set_sync_debug_mode("error")``
   serve_lm ``repro_torch.launch.serve.main`` on gemma2-27b at full width
@@ -142,7 +149,9 @@ JSON object on a line of its own:
            version, its bound and, where one exists, one PyTorch call of
            the same function: B1 at the padded engine's per-round slab; B7
            over the 32 rounds of the S16 epoch (each method; plain versions
-           over the same rounds), its bound from this run's valid ids, edge
+           over the same rounds; in turns with a parent checkout's
+           ``epoch_count`` when its source is in ``build/parent/``), its
+           bound from this run's valid ids, edge
            arrays, landing and ``pair_ops`` compares; B3 on the
            4,096 top-degree rows of the S16 graph with their lengths
            (``launch/resident_timing.py``: ``vs_slots``, the same pairs
@@ -197,6 +206,20 @@ N_PAIRS = 100_000
 LIBRARIES = ("intersect_count", "epoch_count", "resident_intersect",
              "bitmap_popcount", "flash_attention", "flash_attention_wgmma",
              "embedding_bag", "segment_sum_sorted", "spmd_plane")
+# a parent checkout's kernel sources, copied here to be timed beside this
+# checkout's kernels on the same inputs in one call (absent in a plain run):
+# its spmd_plane.cu and epoch_count.cu with the pair_intersect.cuh they
+# include. A source is taken only when its C interface is the one called
+# here (``parent_abi_errors``); any other is refused.
+PARENT_DIR = os.path.join("build", "parent")
+PARENT = {}  # name -> the parent's loaded library
+# the C interface ``parent_pair_counts`` calls: the pair-count kernel of a
+# warp a worklist position, phantoms included, on the [p, f_pad, W] block
+PARENT_PAIR_PARAMS = (
+    "const void* rows, const void* fetched, const void* a_idx, "
+    "const void* b_idx, const void* a_len, const void* b_len, "
+    "const void* mask, void* out, int p, int h, int f_pad, int w, "
+    "long long e_tot, void* stream")
 STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
@@ -306,6 +329,72 @@ B9_PER_STEP = {("gin-tu", "smoke"): 4, ("gat-cora", "smoke"): 4,
 # kernel route vs plain route, each step's loss: relative. The routes
 # differ in B9's fp32 summation order only; 6 Adam steps at lr 1e-3 carry it
 TRAIN_LOSS_RTOL = 1e-4
+
+
+def c_params(path, name):
+    """The parameter list of the ``extern "C"`` function ``name`` defined
+    in the source ``path``, its whitespace collapsed; None if absent."""
+    with open(path) as f:
+        m = re.search(r'extern "C" int ' + name + r"\s*\(([^)]*)\)",
+                      f.read())
+    return None if m is None else " ".join(m.group(1).split())
+
+
+def parent_abi_errors(name, src, build):
+    """Why the parent's ``name``.cu cannot be called here (empty if it
+    can): its ``epoch_count`` entry points must be declared as this
+    checkout's (the swap runs this checkout's wrapper on them), its
+    ``spmd_pair_counts_launch`` as ``PARENT_PAIR_PARAMS``."""
+    if name == "epoch_count":
+        own = str(build.CSRC / "epoch_count.cu")
+        want = {fn: c_params(own, fn) for fn in (
+            "epoch_count_launch", "epoch_land_launch",
+            "epoch_count_stage_cap")}
+    else:
+        want = {"spmd_pair_counts_launch": PARENT_PAIR_PARAMS}
+    return [f"{fn}({c_params(src, fn)}) is not {fn}({params})"
+            for fn, params in want.items() if c_params(src, fn) != params]
+
+
+def start_parent_builds(root, build):
+    """One ``nvcc`` for each parent source in ``PARENT_DIR``, all started
+    together; ``finish_parent_builds`` waits for them and loads each. A
+    source whose C interface is not the one called here raises."""
+    d = os.path.join(root, PARENT_DIR)
+    started = []
+    for name in ("epoch_count", "spmd_plane"):
+        src = os.path.join(d, f"{name}.cu")
+        if os.path.exists(src):
+            errors = parent_abi_errors(name, src, build)
+            if errors:
+                raise RuntimeError(f"{src}: another C interface than this "
+                                   f"script calls: {'; '.join(errors)}")
+            lib = os.path.join(d, f"lib{name}.so")
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", d, "-o", lib, src]
+            started.append((name, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    return started
+
+
+def finish_parent_builds(started):
+    import ctypes
+
+    out = []
+    for name, lib, proc in started:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n"
+                               f"{err}")
+        PARENT[name] = ctypes.CDLL(lib)
+        out.append({"name": name, "source": os.path.join(PARENT_DIR,
+                                                         f"{name}.cu"),
+                    "registers": [int(x) for x in
+                                  re.findall(r"Used (\d+) registers", err)],
+                    "spill_store_bytes": [
+                        int(x) for x in
+                        re.findall(r"(\d+) bytes spill stores", err)]})
+    return out
 
 
 def emit(obj) -> None:
@@ -532,6 +621,20 @@ def time_epoch(dprob, np, torch):
     land_ms = min_ms(land_all, reps=5, warmup=1)
     count_ms = {m: min_ms(lambda m=m: count_all(m), reps=5, warmup=1)
                 for m in ("hybrid", "pairwise", "bsearch")}
+    parent_ms = None
+    if "epoch_count" in PARENT:  # the parent's kernels in turns with these
+        from repro_torch.kernels import _build
+
+        own = _build._libs["epoch_count"]
+        parent_ms = {"parent": [], "this": []}
+        try:
+            for who in ("parent", "this", "this", "parent"):
+                _build._libs["epoch_count"] = (PARENT["epoch_count"]
+                                               if who == "parent" else own)
+                parent_ms[who].append(min_ms(lambda: count_all("hybrid"),
+                                             reps=5, warmup=1))
+        finally:
+            _build._libs["epoch_count"] = own
     acc.zero_()
     count_all("hybrid")
     got = acc.clone()
@@ -570,7 +673,8 @@ def time_epoch(dprob, np, torch):
                         "plain_ms_per_epoch": count_plain_ms,
                         "plain_method": "bsearch", "bytes": count_bytes,
                         "ops": ops_count, "bound_ms_per_epoch": c_bound,
-                        "bound_by": c_by, "err": err},
+                        "bound_by": c_by, "err": err,
+                        "hybrid_ms_per_epoch_in_turns": parent_ms},
         "epoch_land": {"ms_per_epoch": land_ms, "ms_per_round": land_ms / nr,
                        "plain_ms_per_epoch": land_plain_ms,
                        "bytes": land_bytes, "bound_ms_per_epoch": l_bound,
@@ -2033,136 +2137,321 @@ def phase_query_serve(dev, np, torch):
 
 class SpmdRecorder:
     """Wraps the SPMD executor's two device programs as it calls them
-    (``kernels/spmd_plane.py``'s ``serve_block`` and ``pair_counts``, read
-    from the module at every unit): counts calls, and holds kernel output against the plain version on the same inputs,
-    whole, at tolerance 0. ``mode`` says when: ``"inline"`` right after the
-    launch (it synchronises; before any later patch of the buffer), for a
-    unit at least 1.5x the largest one checked in this run, at most
+    (``kernels/spmd_plane.py``'s ``serve_landing`` and
+    ``pair_counts_landed``, read from the module at every unit; a unit is a
+    pair call and the serve call whose landing it reads, if any): counts
+    calls, and holds each unit against the plain versions at tolerance 0:
+    the landing against ``serve_block_ref``'s block (gathered at the
+    landing's positions, the rest of the block the sentinel: no second
+    block is built), the counts against ``pair_counts_ref`` on that block,
+    and the block kernels (``serve_block``, ``pair_counts``) on the same
+    inputs. ``mode`` says when: ``"inline"`` right after the launch (it
+    synchronises; before any later patch of the buffer), for a unit at
+    least 1.5x the largest one checked in this run, at most
     ``SPMD_CHECKS_PER_RUN`` a run, or every unit with ``check_all``;
-    ``"clone"`` copies the largest unit's inputs and output on the device
+    ``"clone"`` copies the largest unit's inputs and outputs on the device
     (no synchronisation) and ``flush()`` checks it after the run; ``"off"``
-    only counts. A check also times kernel, plain version and, for B5, a
-    library composite (CUDA events) and computes the bound; the launches
-    it adds are kept in ``extra`` and are not the path's."""
+    only counts. A check also times every kernel (CUDA events from Python,
+    and on the device alone in a CUDA graph), the plain versions, B5's
+    library composite and, when a parent checkout's ``spmd_plane.cu`` was
+    built (``PARENT``), the parent's pair-count kernel on the block, with
+    bounds; the launches it adds are kept in ``extra`` and are not the
+    path's."""
+
+    NAMES = ("serve_landing", "pair_counts_landed")
 
     def __init__(self, sp, np, torch):
         self.sp, self.np, self.torch = sp, np, torch
-        self.orig = {k: getattr(sp, k) for k in ("serve_block", "pair_counts")}
-        self.extra = {"serve_block": 0, "pair_counts": 0}
+        self.orig = {k: getattr(sp, k) for k in self.NAMES}
+        self.extra = dict.fromkeys(sp.launches(), 0)
         self.checks = []
         self.max_abs_err = 0
         self.run("off")
 
     def run(self, tag, mode="off", check_all=False):
         self.tag, self.mode, self.check_all = tag, mode, check_all
-        self.done = {"serve_block": [], "pair_counts": []}
-        self.kept = {}
-        self.calls = {"serve_block": 0, "pair_counts": 0}
+        self.done = []
+        self.kept = None
+        self.serving = None  # the serve call whose landing is not read yet
+        self.calls = dict.fromkeys(self.NAMES, 0)
 
     def __enter__(self):
         sp = self.sp
 
-        def serve(rows, serve_idx, serve_cfg, f_pad, *, sentinel):
-            out = self.orig["serve_block"](rows, serve_idx, serve_cfg, f_pad,
-                                           sentinel=sentinel)
-            self._seen("serve_block", out.numel(),
-                       (rows, serve_idx, list(serve_cfg), int(f_pad)),
-                       {"sentinel": sentinel}, out)
+        def serve(rows, serve_idx, serve_len, land_off, serve_cfg, n_ids, *,
+                  items):
+            out = self.orig["serve_landing"](rows, serve_idx, serve_len,
+                                             land_off, serve_cfg, n_ids,
+                                             items=items)
+            self.calls["serve_landing"] += 1
+            self.serving = ((serve_idx, serve_len, list(serve_cfg),
+                             int(n_ids), items), out)
             return out
 
-        def pairs(rows, fetched, *lists, pair_cfg, sentinel):
-            out = self.orig["pair_counts"](rows, fetched, *lists,
-                                           pair_cfg=pair_cfg,
-                                           sentinel=sentinel)
-            self._seen("pair_counts", out.numel() * rows.shape[2],
-                       (rows, fetched, *lists),
-                       {"pair_cfg": list(pair_cfg), "sentinel": sentinel}, out)
+        def pairs(rows, landing, land_off, *lists, pair_cfg, sentinel,
+                  real):
+            out = self.orig["pair_counts_landed"](
+                rows, landing, land_off, *lists, pair_cfg=pair_cfg,
+                sentinel=sentinel, real=real)
+            self.calls["pair_counts_landed"] += 1
+            served = self.serving
+            self.serving = None
+            unit = {"rows": rows, "landing": landing, "land_off": land_off,
+                    "lists": lists, "real": real, "pair_cfg": list(pair_cfg),
+                    "sentinel": sentinel, "out": out,
+                    "serve": (served[0] if served is not None
+                              and served[1] is landing else None)}
+            self._seen(unit, out.numel() * rows.shape[2])
             return out
 
-        sp.serve_block, sp.pair_counts = serve, pairs
+        sp.serve_landing, sp.pair_counts_landed = serve, pairs
         return self
 
     def __exit__(self, *exc):
         for k, fn in self.orig.items():
             setattr(self.sp, k, fn)
 
-    def _seen(self, name, size, args, kw, out):
-        self.calls[name] += 1
+    def _seen(self, unit, size):
         if self.mode == "inline":
-            last = self.done[name][-1] if self.done[name] else 0
-            if self.check_all or (size >= 1.5 * last and len(self.done[name])
-                                  < SPMD_CHECKS_PER_RUN):
-                self.done[name].append(size)
-                self.check(name, args, kw, out)
+            last = self.done[-1] if self.done else 0
+            if self.check_all or (size >= 1.5 * last
+                                  and len(self.done) < SPMD_CHECKS_PER_RUN):
+                self.done.append(size)
+                self.check(unit)
         elif self.mode == "clone":
-            if size > self.kept.get(name, (0,))[0]:
-                self.kept[name] = (size, tuple(a.clone() if hasattr(a, "clone")
-                                               else a for a in args),
-                                   kw, out.clone())
+            if self.kept is None or size > self.kept[0]:
+                def copy(x):
+                    if isinstance(x, (tuple, list)):
+                        return type(x)(copy(y) for y in x)
+                    return x.clone() if hasattr(x, "clone") else x
+                self.kept = (size, {k: copy(v) for k, v in unit.items()})
 
     def flush(self):
-        """Check the units kept in ``"clone"`` mode; free them."""
-        for name, (_, args, kw, out) in sorted(self.kept.items()):
-            self.check(name, args, kw, out)
-        self.kept = {}
+        """Check the unit kept in ``"clone"`` mode; free it."""
+        if self.kept is not None:
+            self.check(self.kept[1])
+        self.kept = None
 
-    def check(self, name, args, kw, out):
-        np, torch, sp = self.np, self.torch, self.sp
-        torch.cuda.synchronize()
-        before = sp.launches()
-        plain = getattr(sp, name + "_ref")
-        want = plain(*args, **kw)
-        if out.dtype != torch.int32 or out.shape != want.shape:
-            raise RuntimeError(f"spmd: {name} output {out.dtype} "
-                               f"{tuple(out.shape)} vs {tuple(want.shape)}")
+    def _err(self, name, got, want):
+        torch = self.torch
+        if got.dtype != torch.int32 or got.shape != want.shape:
+            raise RuntimeError(f"spmd: {name} output {got.dtype} "
+                               f"{tuple(got.shape)} vs {tuple(want.shape)}")
         err = 0
-        if not torch.equal(out, want):  # tolerance 0; the size of the miss
-            flat_o, flat_w = out.reshape(-1), want.reshape(-1)
+        if not torch.equal(got, want):  # tolerance 0; the size of the miss
+            flat_o, flat_w = got.reshape(-1), want.reshape(-1)
             step = 1 << 26
             err = max(int((flat_o[i: i + step].long()
                            - flat_w[i: i + step].long()).abs().max())
                       for i in range(0, flat_o.numel(), step))
-        del want
         self.max_abs_err = max(self.max_abs_err, err)
         if err:
             raise RuntimeError(f"spmd ({self.tag}): {name} kernel != plain "
                                f"version (err {err})")
-        kernel = self.orig[name]
-        rec = {"run": self.tag, "kernel": name, "err": err,
-               "ms": min_ms(lambda: kernel(*args, **kw), reps=5, warmup=1),
-               "plain_ms": cuda_ms(lambda: plain(*args, **kw), reps=1,
-                                   warmup=0)}
-        if name == "serve_block":
-            rows, serve_idx, cfg, f_pad = args
-            rec["shape"] = {"rows": list(rows.shape),
-                            "serve_idx": list(serve_idx.shape),
-                            "rungs": cfg, "f_pad": f_pad}
-            rec["library_ms"] = cuda_ms(lambda: library_block(
-                rows, serve_idx, cfg, f_pad, kw["sentinel"], torch),
-                reps=3, warmup=1)
+        return err
+
+    def _landing_err(self, block, landing, land_off, sentinel):
+        """The landing against the block, without a second block: the
+        block gathered at the landing's positions equals it, and the block
+        holds no other id (its count of non-sentinel entries is the
+        landing's)."""
+        torch, sp = self.torch, self.sp
+        p, f_rows, w = block.shape
+        lens = land_off[:, 1:] - land_off[:, :-1]
+        n = landing.numel()
+        rows_of = (torch.arange(p, device=block.device)[:, None] * f_rows
+                   + torch.arange(f_rows, device=block.device)[None, :])
+        gathered = block.view(-1)[sp.flat_spans(rows_of * w, lens, n)]
+        err = self._err("serve_landing", landing, gathered)
+        ids = sum(int((block[j] != sentinel).sum()) for j in range(p))
+        if ids != n:
+            raise RuntimeError(f"spmd ({self.tag}): the block holds {ids} "
+                               f"ids, the landing {n}")
+        return err
+
+    def check(self, unit):
+        torch, sp = self.torch, self.sp
+        from repro_torch.kernels.bucketing import pow2_ceil
+        from repro_torch.launch.bag_timing import graph_ms
+
+        torch.cuda.synchronize()
+        before = sp.launches()
+        rows, landing, land_off = (unit["rows"], unit["landing"],
+                                   unit["land_off"])
+        lists, real, sent = unit["lists"], unit["real"], unit["sentinel"]
+        kw = {"pair_cfg": unit["pair_cfg"], "sentinel": sent}
+        p, h, w = rows.shape
+        f_exact = land_off.shape[1] - 1
+        mask = lists[4]
+        rec = {"run": self.tag, "shape": {
+            "rows": list(rows.shape), "landed_rows": f_exact,
+            "landed_ids": landing.numel(), "worklist": list(mask.shape),
+            "buckets": kw["pair_cfg"], "real_sub_pairs": int(mask.sum()),
+            "phantoms": int((~mask).sum())}}
+        # B5: the landing, and the block kernel of the reference's layout
+        if unit["serve"] is not None:
+            serve_idx, serve_len, cfg, n_ids, items = unit["serve"]
+            rec["shape"]["rungs"] = cfg
+            rec["shape"]["landing_items"] = items.shape[0]
+            block = sp.serve_block_ref(rows, serve_idx, cfg, f_exact,
+                                       sentinel=sent)
+            err = self._landing_err(block, landing, land_off, sent)
+            args = (rows, serve_idx, serve_len, land_off, cfg, n_ids)
+            kernel = self.orig["serve_landing"]
+            nbytes = landing_bytes(rows, serve_idx, serve_len, landing,
+                                   items, torch)
+            bound, by = bound_ms(nbytes, 0.0)
+            rec["serve_landing"] = {
+                "err": err,
+                "ms": min_ms(lambda: kernel(*args, items=items), reps=20,
+                             warmup=3),
+                "device_ms": graph_ms(lambda: kernel(*args, items=items),
+                                      20),
+                "plain_ms": cuda_ms(lambda: sp.serve_landing_ref(*args),
+                                    reps=3, warmup=1),
+                "library_ms": min_ms(lambda: library_landing(
+                    rows, serve_idx, serve_len, land_off, cfg, n_ids,
+                    torch), reps=5, warmup=1),
+                "bytes": nbytes, "bound_ms": bound, "bound_by": by}
+            # the parent's B5 (its source unchanged): the whole block at the
+            # executor's capacity, pow2_ceil(f_exact)
+            f_pad = pow2_ceil(max(f_exact, 1))
+            out = sp.serve_block(rows, serve_idx, cfg, f_pad, sentinel=sent)
+            torch.cuda.synchronize()
+            err = self._err("serve_block", out[:, :f_exact].contiguous(),
+                            block)
+            if int((out[:, f_exact:] != sent).sum()):
+                raise RuntimeError("spmd: serve_block's tail not sentinel")
             nbytes = serve_bytes(rows, serve_idx, cfg, out, torch)
-            ops = 0.0
-        else:
-            rows, fetched, a_idx, b_idx, a_len, b_len, mask = args
-            real = mask
-            rec["shape"] = {"rows": list(rows.shape),
-                            "fetched": list(fetched.shape),
-                            "worklist": list(a_idx.shape),
-                            "buckets": kw["pair_cfg"],
-                            "real_sub_pairs": int(real.sum()),
-                            "phantoms": int((~real).sum())}
-            if int(out[~real].abs().sum()):
-                raise RuntimeError("spmd: a phantom position counted")
-            rec["library_ms"] = None
-            nbytes = pair_bytes(rows, fetched, a_idx, b_idx, a_len, b_len,
-                                mask, torch)
-            ops = pair_ops(a_len[real], b_len[real], torch)
-        rec["bytes"], rec["ops"] = nbytes, ops
-        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+            del out
+            bound, by = bound_ms(nbytes, 0.0)
+            rec["serve_block"] = {
+                "err": err, "f_pad": f_pad,
+                "ms": min_ms(lambda: sp.serve_block(
+                    rows, serve_idx, cfg, f_pad, sentinel=sent), reps=5,
+                    warmup=1),
+                "plain_ms": cuda_ms(lambda: sp.serve_block_ref(
+                    rows, serve_idx, cfg, f_pad, sentinel=sent), reps=1,
+                    warmup=0),
+                "library_ms": cuda_ms(lambda: library_block(
+                    rows, serve_idx, cfg, f_pad, sent, torch), reps=3,
+                    warmup=1),
+                "bytes": nbytes, "bound_ms": bound, "bound_by": by}
+        else:  # no serve traffic: the empty landing
+            block = rows.new_full((p, 0, w), sent)
+        # B6: on the landing (the path's), and on the block
+        want = sp.pair_counts_ref(rows, block, *lists, **kw)
+        out = unit["out"]
+        if int(out[~mask].abs().sum()):
+            raise RuntimeError("spmd: a phantom position counted")
+        if not torch.equal(real.long(),
+                           torch.nonzero(mask.reshape(-1)).reshape(-1)):
+            raise RuntimeError("spmd: the real list is not the mask's")
+        nbytes = pair_bytes(rows, f_exact, *lists, real, torch)
+        ops = pair_ops(lists[2][mask], lists[3][mask], torch)
+        bound, by = bound_ms(nbytes, ops)
+        kernel = self.orig["pair_counts_landed"]
+        args = (rows, landing, land_off, *lists)
+        rec["pair_counts_landed"] = {
+            "err": self._err("pair_counts_landed", out, want),
+            "ms": min_ms(lambda: kernel(*args, **kw, real=real), reps=20,
+                         warmup=3),
+            "device_ms": graph_ms(lambda: kernel(*args, **kw, real=real), 20),
+            "plain_ms": cuda_ms(lambda: sp.pair_counts_landed_ref(
+                *args, **kw), reps=1, warmup=0),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "bound_ms": bound, "bound_by": by}
+        blk_args = (rows, block, *lists)
+        got = sp.pair_counts(*blk_args, **kw, real=real)
+        rec["pair_counts"] = {
+            "err": self._err("pair_counts", got, want),
+            "ms": min_ms(lambda: sp.pair_counts(*blk_args, **kw, real=real),
+                         reps=20, warmup=3),
+            "device_ms": graph_ms(
+                lambda: sp.pair_counts(*blk_args, **kw, real=real), 20),
+            "plain_ms": cuda_ms(lambda: sp.pair_counts_ref(*blk_args, **kw),
+                                reps=1, warmup=0),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "bound_ms": bound, "bound_by": by}
+        parent = PARENT.get("spmd_plane")
+        if parent is not None:  # the parent's B6: a warp a position
+            launch = parent_pair_counts(parent, rows, block, lists, torch)
+            if not torch.equal(launch(), want):
+                raise RuntimeError("spmd: the parent's pair_counts differs")
+            rec["pair_counts"]["parent_ms"] = min_ms(launch, reps=20,
+                                                     warmup=3)
+            rec["pair_counts"]["parent_device_ms"] = graph_ms(launch, 20)
+        del want, block, got
         torch.cuda.synchronize()
         for k, n in sp.launches().items():
             self.extra[k] += n - before[k]
         self.checks.append(rec)
+
+
+def parent_pair_counts(lib, rows, block, lists, torch):
+    """A call of the parent checkout's B6 kernel (its
+    ``spmd_pair_counts_launch``, declared as ``PARENT_PAIR_PARAMS``: a warp
+    a worklist position, phantoms included) on the block; returns a
+    function that launches it."""
+    import ctypes
+
+    fn = lib.spmd_pair_counts_launch
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [ptr] * 8 + [i32] * 4 + [i64, ptr]
+    fn.restype = ctypes.c_int
+    p, h, w = rows.shape
+
+    def launch():
+        out = torch.empty(lists[0].shape, dtype=torch.int32,
+                          device=rows.device)
+        err = fn(rows.data_ptr(), block.data_ptr(),
+                 *(x.data_ptr() for x in lists), out.data_ptr(), p, h,
+                 block.shape[1], w, lists[0].shape[1],
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent pair_counts: cudaError {err}")
+        return out
+    return launch
+
+
+def library_landing(rows, serve_idx, serve_len, land_off, serve_cfg, n_ids,
+                    torch):
+    """The landing by stock torch calls: ``torch.repeat_interleave`` of the
+    landed rows' bases (less their offsets), an ``arange`` added, then one
+    ``index_select`` of the flattened buffer."""
+    p, h, w = rows.shape
+    src = torch.arange(p, device=rows.device)[None, :, None]
+    bases, lens, off = [], [], 0
+    for s_b, _ in serve_cfg:
+        slots = serve_idx[:, :, off: off + s_b].transpose(0, 1).long()
+        bases.append(((src * h + slots) * w).reshape(p, -1))
+        lens.append(serve_len[:, :, off: off + s_b].transpose(0, 1)
+                    .reshape(p, -1))
+        off += s_b
+    shift = torch.cat(bases, 1).reshape(-1) - land_off[:, :-1].reshape(-1)
+    idx = torch.repeat_interleave(shift, torch.cat(lens, 1).reshape(-1),
+                                  output_size=n_ids)
+    idx += torch.arange(n_ids, device=rows.device)
+    return torch.index_select(rows.view(-1), 0, idx)
+
+
+def landing_bytes(rows, serve_idx, serve_len, landing, items,
+                  torch) -> float:
+    """B5's landing bytes, what the kernel must touch: each distinct
+    served row's valid prefix read once, the landing written once, the work
+    list (8 B an item) and, for each landed row of nonzero length only (the
+    rung padding is never read), its slot, length and offset (16 B)."""
+    p, h, _ = rows.shape
+    keys = (serve_idx.long() + (torch.arange(p, device=rows.device)
+                                * h)[:, None, None]).reshape(-1)
+    lens = serve_len.reshape(-1).long()
+    live = lens > 0
+    keys, lens = keys[live], lens[live]
+    uniq, inv = torch.unique(keys, return_inverse=True)
+    per = torch.zeros(uniq.numel(), dtype=torch.long, device=rows.device)
+    per.scatter_reduce_(0, inv, lens, "amax")
+    return (float(per.sum()) * 4 + landing.numel() * 4.0
+            + items.shape[0] * 8.0 + keys.numel() * 16.0)
 
 
 def library_block(rows, serve_idx, serve_cfg, f_pad, sentinel, torch):
@@ -2199,29 +2488,37 @@ def serve_bytes(rows, serve_idx, serve_cfg, out, torch) -> float:
     return total + serve_idx.numel() * 4.0 + out.numel() * 4.0
 
 
-def pair_bytes(rows, fetched, a_idx, b_idx, a_len, b_len, mask,
+def pair_bytes(rows, f_rows, a_idx, b_idx, a_len, b_len, mask, real,
                torch) -> float:
-    """B6's bytes: each distinct row a real sub-pair reads, once, over its
-    valid length; the index, length and mask lists; the counts written."""
+    """B6's bytes, what the kernel must touch: the ``real`` list and the
+    two lengths at each real position (12 B; the phantoms are never read);
+    where both lengths are nonzero, the two indices (8 B), each distinct
+    row read once over its valid length and the offset (8 B) of each
+    distinct fetched one; the counts written whole (``f_rows`` fetched rows
+    a rank)."""
     p, h, _ = rows.shape
-    stride = h + fetched.shape[1]
+    stride = h + f_rows
+    live = mask & (a_len > 0) & (b_len > 0)
     rank = torch.arange(p, device=rows.device)[:, None] * stride
-    keys = torch.cat([(a_idx.long() + rank)[mask], (b_idx.long() + rank)[mask]])
-    lens = torch.cat([a_len[mask], b_len[mask]]).long()
+    keys = torch.cat([(a_idx.long() + rank)[live], (b_idx.long() + rank)[live]])
+    lens = torch.cat([a_len[live], b_len[live]]).long()
     uniq, inv = torch.unique(keys, return_inverse=True)
     per = torch.zeros(uniq.numel(), dtype=torch.long, device=rows.device)
-    per.scatter_(0, inv, lens)
-    n = a_idx.numel()
-    return float(per.sum()) * 4 + n * (4 * 4 + 1 + 4.0)
+    per.scatter_reduce_(0, inv, lens, "amax")
+    n_fetched = int(((uniq % stride) >= h).sum())
+    return (float(per.sum()) * 4 + n_fetched * 8.0 + real.numel() * 12.0
+            + int(live.sum()) * 8.0 + a_idx.numel() * 4.0)
 
 
-def spmd_edge_units(dev, np, torch):
+def spmd_edge_units(dev, np, torch, recorder):
     """The executor on the card over units built to reach B5 and B6's
     edges, every unit checked (``SpmdRecorder`` inline, check_all): the
-    empty unit (no launch), pairs with no serve traffic (the cached sentinel
-    block, no B5), a buffer narrower than the ladder (W = 32: the rungs and
-    buckets clipped to it), phantom positions at the pad slot, and a p = 8
-    unit whose every row ships. Returns what each unit exercised."""
+    empty unit (no launch), pairs with no serve traffic (the empty landing,
+    no B5), a buffer narrower than the ladder (W = 32: the rungs and
+    buckets clipped to it), phantom positions at the pad slot, rows of
+    length 0, and a p = 8 unit whose every row ships. The executor launches
+    the landed route's kernels and never the block's (the launches of the
+    recorder's checks set apart). Returns what each unit exercised."""
     from repro_torch.core.partition import partition_1d
     from repro_torch.distributed import spmd_runtime as spmd
     from repro_torch.kernels import spmd_plane as sp
@@ -2257,7 +2554,7 @@ def spmd_edge_units(dev, np, torch):
                 held = {int(v): rows[int(v)] for v in ids[own]}
                 fetched = [int(v) for v in ids[~own]]
             shards.append(spmd.ShardWork(j, a, b, held, fetched))
-        before = sp.launches()
+        before, extra = sp.launches(), dict(recorder.extra)
         counts, unit = ex.run(shards, Rows(rows))
         want = [np.array([np.intersect1d(rows[int(x)], rows[int(y)]).size
                           for x, y in zip(s.pair_a, s.pair_b)], np.int64)
@@ -2265,13 +2562,16 @@ def spmd_edge_units(dev, np, torch):
         if not all(c.dtype == np.int64 and np.array_equal(c, w)
                    for c, w in zip(counts, want)):
             raise RuntimeError(f"spmd edge unit {name}: wrong counts")
-        got = {k: sp.launches()[k] - before[k] for k in before}
-        if got["pair_counts"] < 1 or (got["serve_block"] > 0) != ship:
+        got = {k: sp.launches()[k] - before[k]
+               - (recorder.extra[k] - extra[k]) for k in before}
+        if (got["pair_counts_landed"] < 1
+                or (got["serve_landing"] > 0) != ship
+                or got["serve_block"] or got["pair_counts"]):
             raise RuntimeError(f"spmd edge unit {name}: launches {got}")
         out.append({"unit": name, "p": p, "W": ex._buf.w, "H": ex._buf.h,
                     "rungs_clipped_to_W": ex._pair_widths(ex._buf.w),
                     "rows_shipped": unit.total_rows,
-                    "serve_launched": got["serve_block"] > 0})
+                    "serve_launched": got["serve_landing"] > 0})
     ex = spmd.SpmdIntersectExecutor(partition_1d(16, 2), 16, device=dev)
     z = np.zeros(0, np.int64)
     before = sp.launches()
@@ -2321,15 +2621,17 @@ def phase_spmd(dev, np, torch, stream_loop):
         torch.cuda.synchronize()
         launches[tag] = {k: n - (recorder.extra[k] - extra0[k])
                          for k, n in sp.launches().items()}
-        if min(launches[tag].values()) <= 0:
-            raise RuntimeError(f"spmd ({tag}): a kernel never launched "
-                               f"{launches[tag]}")
+        # the landed route's kernels run; the block's never do
+        if (min(launches[tag][k] for k in SpmdRecorder.NAMES) <= 0
+                or launches[tag]["serve_block"]
+                or launches[tag]["pair_counts"]):
+            raise RuntimeError(f"spmd ({tag}): launches {launches[tag]}")
         return out
 
     with recorder:
         # (a) edge units
         recorder.run("edge_units", "inline", check_all=True)
-        rec["edge_units"] = spmd_edge_units(dev, np, torch)
+        rec["edge_units"] = spmd_edge_units(dev, np, torch, recorder)
 
         # (b) the stream, SPMD and pipelined, against phase stream's run
         recorder.run("stream_s14", "clone")
@@ -2484,6 +2786,15 @@ def phase_spmd(dev, np, torch, stream_loop):
             if route == "spmd":
                 ex = svc.engine.spmd
                 led = ex.ledger
+                a2a = [ev.get("args") or {} for ev in tracer.events
+                       if ev.get("name") == "all_to_all"]
+                # the landing holds each shipped row's ids once: its
+                # bytes are the payload's, unit by unit
+                out["landed_bytes"] = sum(a["landed_bytes"] for a in a2a)
+                out["landed_bytes_max_unit"] = max(
+                    (a["landed_bytes"] for a in a2a), default=0)
+                if any(a["landed_bytes"] != a["payload_bytes"] for a in a2a):
+                    raise RuntimeError("spmd s16: landed bytes != payload")
                 modeled = svc.runtime.serve_rows
                 if not np.array_equal(led.rows_shipped, modeled):
                     raise RuntimeError("spmd s16: measured != modeled")
@@ -2516,40 +2827,50 @@ def phase_spmd(dev, np, torch, stream_loop):
     rec["launches"] = launches
     rec["max_abs_err"] = recorder.max_abs_err
     rec["checks"] = recorder.checks
-    path = {"serve_block": 0, "pair_counts": 0}
+    path = dict.fromkeys(sp.launches(), 0)
     for n in launches.values():
         for k in path:
             path[k] += n[k]
     return rec, path, recorder
 
 
+SPMD_KERNELS = (  # name, id, the reference body it replaces, its line
+    ("serve_landing", "B5", "_body_serve", 457),
+    ("serve_block", "B5", "_body_serve", 457),
+    ("pair_counts_landed", "B6", "_body_pairs", 500),
+    ("pair_counts", "B6", "_body_pairs", 500))
+
+
 def spmd_kernel_rows(rec, launches, recorder):
-    """The kernels-line entries of B5 and B6: times, plain-version and
-    library times and bound of the S16 window's largest checked unit (of
-    the largest checked unit if none), every check beside them."""
+    """The kernels-line entries of B5 and B6 (the landed route's and the
+    block's entry points): times, plain-version and library times and
+    bound of the S16 window's largest checked unit (of the largest checked
+    unit if none), every check beside them."""
     rows = []
-    for name, ref_line, body in (("serve_block", 457, "_body_serve"),
-                                 ("pair_counts", 500, "_body_pairs")):
-        checks = [c for c in recorder.checks if c["kernel"] == name]
+    for name, kid, body, ref_line in SPMD_KERNELS:
+        checks = [c for c in recorder.checks if name in c]
         s16 = [c for c in checks if c["run"] == "qs_s16_window"]
-        top = max(s16 or checks, key=lambda c: c["bytes"])
+        top = max(s16 or checks, key=lambda c: c[name]["bytes"])
         rows.append({
-            "name": name, "id": "B5" if name == "serve_block" else "B6",
-            "route": "cuda", "ok": True,
+            "name": name, "id": kid, "route": "cuda", "ok": True,
             "source": "src/repro_torch/kernels/csrc/spmd_plane.cu",
             "replaces": f"src/repro/distributed/spmd_runtime.py:{ref_line}",
             "replaces_note": f"{body}, a shard_map program of the SPMD "
-                             "data plane; no pallas_call",
+                             "data plane; no pallas_call" + (
+                                 "" if name in SpmdRecorder.NAMES else
+                                 "; the reference's layout, off the "
+                                 "executor's path"),
             "launches": launches[name],
             "launches_by_run": {t: n[name] for t, n in rec["launches"].items()},
             "max_abs_err": recorder.max_abs_err, "tolerance": 0,
             "shape": top["shape"], "shape_from": top["run"],
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["library_ms"],
-            "library_is": ("index_select + F.pad + cat of the same block"
-                           if name == "serve_block" else None),
-            "checks": checks})
+            **top[name],
+            "library_is": {"serve_landing": "repeat_interleave + "
+                                            "index_select of the landing",
+                           "serve_block": "index_select + F.pad + cat of "
+                                          "the same block"}.get(name),
+            "checks": [{"run": c["run"], "shape": c["shape"], **c[name]}
+                       for c in checks]})
     return rows
 
 
@@ -2591,7 +2912,9 @@ def main() -> int:
 
     # -------------------------------------------------------------- build
     t0 = time.perf_counter()
+    parent_started = start_parent_builds(root, _build)
     infos = _build.build_all(LIBRARIES)  # one nvcc per source, in parallel
+    parent_libraries = finish_parent_builds(parent_started)
     build_wall = time.perf_counter() - t0
     libraries = []
     for name, info in infos.items():
@@ -2616,6 +2939,7 @@ def main() -> int:
     if not hgmma:
         raise RuntimeError("flash_attention_wgmma: no HGMMA in its SASS")
     emit({"phase": "build", "wall_s": build_wall, "libraries": libraries,
+          "parent_libraries": parent_libraries,
           "flash_attention_wgmma_sass": {
               "hgmma_instructions": len(hgmma),
               "kinds": sorted({ln.split()[0] + (" tnspB" if "tnspB" in ln
@@ -3236,6 +3560,8 @@ def main() -> int:
         "ms": ep_t["epoch_count"]["ms_per_epoch"]["hybrid"],
         "ms_is": "per epoch (32 launches)",
         "ms_by_method": ep_t["epoch_count"]["ms_per_epoch"],
+        "ms_in_turns_with_parent": ep_t["epoch_count"][
+            "hybrid_ms_per_epoch_in_turns"],
         "plain_ms": ep_t["epoch_count"]["plain_ms_per_epoch"],
         "bound_ms": ep_t["epoch_count"]["bound_ms_per_epoch"],
         "bound_by": ep_t["epoch_count"]["bound_by"],

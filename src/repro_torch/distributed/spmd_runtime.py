@@ -21,9 +21,12 @@ unit as two ``shard_map`` programs over a p-device JAX mesh):
   untouched; its recorded ``"miss"`` events become serve lists, bucketed
   onto a fixed geometric ladder of pow-2 width rungs
   (``_PAIR_WIDTH_LADDER``) with windowed high-water capacities. The serve
-  block (B5, ``kernels/spmd_plane.py::serve_block``) moves exactly those
-  rows owner -> requester, the all_to_all as the block transpose
-  ``got[dst, src] = to_send[src, dst]``. The measured ``CollectiveLedger``
+  program (B5, ``kernels/spmd_plane.py::serve_landing``) moves exactly
+  those rows owner -> requester, the all_to_all as the block transpose
+  ``got[dst, src] = to_send[src, dst]``: each row's valid prefix, packed
+  into one landing at offsets the host computes from the lengths it holds
+  (the plain route builds the reference's ``[p, f_pad, W]`` block
+  instead, ``serve_block_ref``). The measured ``CollectiveLedger``
   reconciles *by construction* against the modeled matrix; ``bytes_on_wire``
   is charged from the rung shapes, ``bytes_on_wire_single`` from what one
   single-width collective would have moved — the same capacities, layout
@@ -47,9 +50,11 @@ unit as two ``shard_map`` programs over a p-device JAX mesh):
   pre-grow buffer included) and its pinned staging buffers until ``wait()``.
   ``run()`` is dispatch + wait.
 - **On-device intersect** — every rank's pair worklist is counted by the
-  pair-count program (B6, ``kernels/spmd_plane.py::pair_counts``), each side
-  read by index where it lies (resident buffer or fetched block) over its
-  valid length. ``use_kernel=None`` keys the route on the device: the CUDA
+  pair-count program (B6, ``kernels/spmd_plane.py::pair_counts_landed``),
+  each side read by index where it lies (resident buffer or landing) over
+  its valid length, over the real sub-pairs only (their flat positions are
+  staged with the worklist). ``use_kernel=None`` keys the route on the
+  device: the CUDA
   kernels there, their plain torch versions on the CPU; ``use_kernel=False``
   takes the plain versions on any device. Counts are exact integers either
   way, so SPMD execution — pipelined or not — is bit-exact against the
@@ -193,6 +198,16 @@ class CollectiveLedger:
             "device_wall_s": self.device_wall_s,
             "overlap_wait_s": self.overlap_wait_s,
         }
+
+
+def _exclusive_rows(lens: np.ndarray) -> np.ndarray:
+    """``[p, F + 1]`` int64: row j holds the exclusive cumsum of ``lens``
+    flattened in row order at ``[j, :F]`` and row j's end at ``[j, F]``
+    (row j + 1's start), so ``[-1, -1]`` is the total."""
+    p, f = lens.shape
+    flat = np.zeros(p * f + 1, np.int64)
+    np.cumsum(lens.reshape(-1), dtype=np.int64, out=flat[1:])
+    return flat[np.arange(p)[:, None] * f + np.arange(f + 1)[None, :]]
 
 
 def _stage(arrays: Sequence[np.ndarray], device: torch.device):
@@ -431,7 +446,8 @@ class PendingUnit:
     synchronisation of the SPMD path (the unit's CUDA event) — and returns
     ``(counts, unit)`` exactly like the blocking ``run()``: per-rank int64
     counts in worklist order. ``keep`` holds what the unit's device work
-    reads (the buffer it captured, the fetched block, the index tensors)
+    reads (the buffer it captured, the landing or the fetched block, the
+    index tensors)
     and its pinned staging buffers until then."""
 
     executor: "SpmdIntersectExecutor"
@@ -559,9 +575,10 @@ class SpmdIntersectExecutor:
         return self._buf.audit(store, expect=expect)
 
     def _empty_fetched(self, f_pad: int, w: int) -> torch.Tensor:
-        """Cached all-sentinel fetch block for units with no serve traffic:
-        the pair program still takes its ``[p, f_pad, w]`` fetch input, but
-        nothing moves."""
+        """Cached all-sentinel fetch block for units with no serve traffic
+        on the plain route: the reference's pair program still takes its
+        ``[p, f_pad, w]`` fetch input, but nothing moves (the kernel route
+        takes an empty landing)."""
         blk = self._empty_blocks.get((f_pad, w))
         if blk is None:
             blk = torch.full((self.p, f_pad, w), self.n, dtype=torch.int32,
@@ -733,6 +750,7 @@ class SpmdIntersectExecutor:
                     serve_lists[rung].setdefault((k, j), []).append(key)
         serve_cfg: List[Tuple[int, int]] = []
         serve_segs: List[np.ndarray] = []
+        len_segs: List[np.ndarray] = []  # valid length a serve position
         # fetch_refs[j][key] -> every (combined-buffer index, width) that
         # arrived for ``key`` at requester j. Whole rows have one ref; a
         # split hub row has one ref per serving rank (its fragments), all
@@ -751,15 +769,18 @@ class SpmdIntersectExecutor:
             if not has_serve:
                 continue
             seg = np.full((p, p, s_b), pad_slot, np.int32)
+            len_seg = np.zeros((p, p, s_b), np.int32)
             for (k, j), keys in lists.items():
                 for pos, key in enumerate(keys):
+                    size = serve_rows_content[k][key].size
                     seg[k, j, pos] = self._buf.slot_of[k][key]
+                    len_seg[k, j, pos] = size
                     fetch_refs[j].setdefault(key, []).append((
-                        fetch_base + k * s_b + pos,
-                        serve_rows_content[k][key].size,
+                        fetch_base + k * s_b + pos, size,
                     ))
             serve_cfg.append((s_b, w_b))
             serve_segs.append(seg)
+            len_segs.append(len_seg)
             fetch_base += p * s_b
             wire_bytes += p * (p - 1) * s_b * w_b * ID_BYTES
         # single-width baseline: one collective padded to the max ship
@@ -837,6 +858,7 @@ class SpmdIntersectExecutor:
         pair_cfg: List[Tuple[int, int]] = []
         segs: List[List[np.ndarray]] = [[], [], [], [], []]
         scatter: List[List[Tuple[np.ndarray, int]]] = [[] for _ in range(p)]
+        real_runs: List[Tuple[int, int, int]] = []  # (rank, start, count)
         seg_off = 0
         for slot, w_p in enumerate(widths):
             indices = np.flatnonzero(pair_slot == slot)
@@ -868,6 +890,7 @@ class SpmdIntersectExecutor:
                         lb_seg[j, : sel.size] = sub_wb_arr[sel]
                         m_seg[j, : sel.size] = True
                         scatter[j].append((sub_pos[sel], seg_off))
+                        real_runs.append((j, seg_off, sel.size))
             pair_cfg.append((e_pad, w_p))
             for lst, seg in zip(segs, (a_seg, b_seg, la_seg, lb_seg, m_seg)):
                 lst.append(seg)
@@ -876,8 +899,26 @@ class SpmdIntersectExecutor:
             np.concatenate(lst, axis=1) for lst in segs
         )
         staged = [a_idx, b_idx, a_len, b_len, mask]
+        # the landing: every shipped row's valid prefix, packed in (j, f)
+        # order (f = fetched row); f_exact = fetch_base - h rows a rank
+        flen = (np.concatenate([x.transpose(1, 0, 2).reshape(p, -1)
+                                for x in len_segs], axis=1)
+                if has_serve else np.zeros((p, 0), np.int32))
+        land_off = _exclusive_rows(flen)
+        n_landed = int(land_off[-1, -1])
+        if self.use_kernel:
+            # the real sub-pairs' flat positions, ascending: B6's grid
+            e_tot = a_idx.shape[1]
+            real = np.sort(np.concatenate(
+                [j * e_tot + off + np.arange(n, dtype=np.int64)
+                 for j, off, n in real_runs] or [np.zeros(0, np.int64)]
+            )).astype(np.int32)
+            staged += [real, land_off]
         if has_serve:
             staged.append(np.concatenate(serve_segs, axis=2))
+            if self.use_kernel:
+                staged += [np.concatenate(len_segs, axis=2),
+                           spmd_plane.landing_items(flen)]
         views, host = _stage(staged, self.device)
         keep.append(host)
         _pack.__exit__(None, None, None)
@@ -892,20 +933,31 @@ class SpmdIntersectExecutor:
         with obs_trace.span(
             "all_to_all", cat="spmd", pairs=n_pairs,
             payload_bytes=int(unit.bytes_payload), wire_bytes=wire_bytes,
-            buckets=len(serve_cfg),
+            buckets=len(serve_cfg), landed_bytes=n_landed * ID_BYTES,
         ):
             rows = self._buf.rows
-            if has_serve:
-                serve = (spmd_plane.serve_block if self.use_kernel
-                         else spmd_plane.serve_block_ref)
-                fetched = serve(rows, views[5], serve_cfg, f_pad,
-                                sentinel=self.n)
+            if self.use_kernel:
+                # B5 lands the valid prefixes packed; B6 reads them there
+                real_v, land_off_v = views[5], views[6]
+                if has_serve:
+                    fetched = spmd_plane.serve_landing(
+                        rows, views[7], views[8], land_off_v, serve_cfg,
+                        n_landed, items=views[9])
+                else:
+                    fetched = rows.new_empty(0)  # the empty landing
+                out = spmd_plane.pair_counts_landed(
+                    rows, fetched, land_off_v, *views[:5], pair_cfg=pair_cfg,
+                    sentinel=self.n, real=real_v)
             else:
-                fetched = self._empty_fetched(f_pad, w)
-            count = (spmd_plane.pair_counts if self.use_kernel
-                     else spmd_plane.pair_counts_ref)
-            out = count(rows, fetched, *views[:5], pair_cfg=pair_cfg,
-                        sentinel=self.n)
+                # the reference's layout: the [p, f_pad, W] block
+                if has_serve:
+                    fetched = spmd_plane.serve_block_ref(
+                        rows, views[5], serve_cfg, f_pad, sentinel=self.n)
+                else:
+                    fetched = self._empty_fetched(f_pad, w)
+                out = spmd_plane.pair_counts_ref(
+                    rows, fetched, *views[:5], pair_cfg=pair_cfg,
+                    sentinel=self.n)
             event = None
             if out.device.type == "cuda":
                 host_out = torch.empty(out.shape, dtype=out.dtype,

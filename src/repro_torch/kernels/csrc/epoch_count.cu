@@ -39,6 +39,8 @@
 // heavy pairs spread over many blocks (32 and 64 were slower), 256 threads
 // beat 128, light <= 256 and heavy > 2,048 compares beat 512 / 16,384 and
 // 128 / 1,024, and a second tile of prefetch in the merge gained nothing.
+// The tile's classing and counting are pair_intersect.cuh's (Tile,
+// tile_add, tile_count), shared with B6 (spmd_plane.cu).
 //
 // Plain C interface (no PyTorch headers): the Python wrapper
 // (kernels/epoch_count.py) passes raw device pointers and the current
@@ -81,29 +83,23 @@ struct CountArgs {
   int* acc;  // [p * (n_loc + 1)]
 };
 
-struct Pair {
-  const int* a;
-  const int* b;
-  int na, nb, acc, merge;
+// acc[rank, u] += the pair's count: exact and order-free
+struct AddCount {
+  int* acc;
+  __device__ __forceinline__ void operator()(const pi::Pair& pr,
+                                             int c) const {
+    if (c != 0) atomicAdd(acc + pr.dst, c);
+  }
 };
-
-__device__ __forceinline__ void add_count(int* acc, int idx, int c) {
-  if (c != 0) atomicAdd(acc + idx, c);
-}
 
 __global__ void __launch_bounds__(kThreads)
 epoch_count_kernel(const CountArgs args) {
-  __shared__ Pair pairs[kTile];
-  __shared__ unsigned char lists[3][kTile];  // heavy, medium, light
-  __shared__ int n_in[3], next_in[3];
+  __shared__ pi::Tile<kTile> tile;
   __shared__ int red[kWarps];
   extern __shared__ int stage[];
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  if (tid < 3) {
-    n_in[tid] = 0;
-    next_in[tid] = 0;
-  }
+  const int tid = threadIdx.x;
+  pi::tile_init(tile);
   __syncthreads();
 
   const long long n_slots = (long long)args.p * args.e_chunk;
@@ -134,51 +130,16 @@ epoch_count_kernel(const CountArgs args) {
       }
       if (u < args.n_loc && na > 0 && nb > 0) {
         const bool merge = pi::use_merge(args.method, na, nb);
-        const long long w = pi::work(merge, na, nb);
-        const int cls = w > kHeavyWork ? 0 : (w > kLightWork ? 1 : 2);
-        pairs[tid] = Pair{args.rows_flat + (base + u) * args.row_stride, b,
-                          na, nb, (int)(base + u), merge ? 1 : 0};
-        lists[cls][atomicAdd(&n_in[cls], 1)] = (unsigned char)tid;
+        pi::tile_add<kTile, kLightWork, kHeavyWork>(
+            tile, tid,
+            pi::Pair{args.rows_flat + (base + u) * args.row_stride, b, na,
+                     nb, (int)(base + u), merge ? 1 : 0});
       }
     }
   }
   __syncthreads();
-
-  // heavy pairs: the whole block, one after another
-  const int* staged = nullptr;
-  for (int h = 0; h < n_in[0]; ++h) {
-    const Pair pr = pairs[lists[0][h]];
-    const int c = pi::block_count<kThreads>(pr.a, pr.na, pr.b, pr.nb,
-                                            pr.merge != 0, stage,
-                                            args.stage_cap, staged, red);
-    if (tid == 0) add_count(args.acc, pr.acc, c);
-  }
-
-  // medium pairs: one warp each
-  while (true) {
-    int k = 0;
-    if (lane == 0) k = atomicAdd(&next_in[1], 1);
-    k = __shfl_sync(pi::kFull, k, 0);
-    if (k >= n_in[1]) break;
-    const Pair pr = pairs[lists[1][k]];
-    const int c = pi::group_count<32>(pr.a, pr.na, pr.b, pr.nb, pr.merge != 0,
-                                      lane, pi::kFull);
-    if (lane == 0) add_count(args.acc, pr.acc, c);
-  }
-
-  // light pairs: kGroup lanes each
-  const int g_lane = lane & (kGroup - 1);
-  const unsigned g_mask = ((1u << kGroup) - 1u) << (lane & ~(kGroup - 1));
-  while (true) {
-    int k = 0;
-    if (g_lane == 0) k = atomicAdd(&next_in[2], 1);
-    k = __shfl_sync(g_mask, k, 0, kGroup);
-    if (k >= n_in[2]) break;
-    const Pair pr = pairs[lists[2][k]];
-    const int c = pi::group_count<kGroup>(pr.a, pr.na, pr.b, pr.nb,
-                                          pr.merge != 0, g_lane, g_mask);
-    if (g_lane == 0) add_count(args.acc, pr.acc, c);
-  }
+  pi::tile_count<kThreads, kGroup>(tile, stage, args.stage_cap, red,
+                                   AddCount{args.acc});
 }
 
 __global__ void __launch_bounds__(kThreads)

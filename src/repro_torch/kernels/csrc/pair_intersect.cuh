@@ -25,6 +25,15 @@
 // every lane of the group calls a group function, gets its partial count,
 // and group_sum folds the partials. block_count is called by every thread of
 // a block and returns the pair's count on thread 0.
+//
+// A tile (Tile, tile_add, tile_count) is the work classing of B7
+// (epoch_count.cu) and B6 (spmd_plane.cu): a block resolves up to kTile
+// pairs (pointers, lengths, strategy) into shared memory and files each
+// under a class by its work; then heavy pairs are split by the whole block
+// one after another (the longer row staged in shared memory for a search, a
+// row shared by consecutive heavy pairs staged once), medium pairs take one
+// warp each and light pairs G lanes each, both taken from their lists by a
+// shared counter.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,6 +85,25 @@ __device__ __forceinline__ int lower_bound(const int* row, int n, int key) {
     }
   }
   return lo;
+}
+
+// first index in row[0, n) whose value is >= key, by the 32 lanes of a warp
+// (all of them call it): 31 probes a round narrow the range 32-fold, so a
+// row of n ids takes ceil(log32(n)) + 1 dependent loads instead of log2(n)
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ row,
+                                                int n, int key, int lane) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int at = lo + (lane + 1) * step - 1;
+    const unsigned below =
+        __ballot_sync(kFull, at < hi && __ldg(row + at) < key);
+    const int k = __popc(below);
+    hi = min(hi, lo + (k + 1) * step);
+    lo += k * step;
+  }
+  const int at = lo + lane;
+  return lo + __popc(__ballot_sync(kFull, at < hi && __ldg(row + at) < key));
 }
 
 // search: elements first, first + stride, ... of s[0, ns) looked up in
@@ -210,7 +238,8 @@ __device__ __forceinline__ int group_count_ilp(const int* __restrict__ a,
 
 // |a ∩ b| by every thread of a block of T threads. merge: the longer prefix
 // is cut into one chunk a warp, and each warp merges its chunk with the
-// slice of the shorter prefix that can hold the chunk's matches. search: the
+// slice of the shorter prefix that can hold the chunk's matches (found by
+// warp_lower_bound). search: the
 // longer prefix is staged in shared memory (`stage`, stage_cap ids) when it
 // fits, then every thread searches its elements of the shorter one; `staged`
 // (the same on every thread) names the row `stage` holds, so a row that
@@ -232,14 +261,10 @@ __device__ __forceinline__ int block_count(const int* __restrict__ a, int na,
     constexpr int kWarps = T / 32;
     const int chunk = (nl + kWarps - 1) / kWarps;
     const int c0 = min(nl, warp * chunk), c1 = min(nl, c0 + chunk);
-    if (c0 < c1) {
-      int s0 = 0, s1 = 0;
-      if (lane == 0) {
-        s0 = lower_bound<false>(s, ns, __ldg(l + c0));
-        s1 = s0 + lower_bound<false>(s + s0, ns - s0, __ldg(l + c1 - 1) + 1);
-      }
-      s0 = __shfl_sync(kFull, s0, 0);
-      s1 = __shfl_sync(kFull, s1, 0);
+    if (c0 < c1) {  // the same for every lane of the warp
+      const int s0 = warp_lower_bound(s, ns, __ldg(l + c0), lane);
+      const int s1 = s0 + warp_lower_bound(s + s0, ns - s0,
+                                           __ldg(l + c1 - 1) + 1, lane);
       part = merge_part<32>(l + c0, c1 - c0, s + s0, s1 - s0, lane, kFull);
     }
   } else if (nl <= stage_cap) {
@@ -262,6 +287,89 @@ __device__ __forceinline__ int block_count(const int* __restrict__ a, int na,
   }
   __syncthreads();
   return total;
+}
+
+// One resolved pair of a tile: its two rows and valid lengths, where its
+// count goes (`dst`, read by the caller's emit) and the strategy.
+struct Pair {
+  const int* a;
+  const int* b;
+  int na, nb, dst, merge;
+};
+
+// The pairs a block resolved and their three class lists: 0 heavy (the
+// whole block), 1 medium (a warp), 2 light (G lanes).
+template <int kTile>
+struct Tile {
+  Pair pairs[kTile];
+  unsigned char lists[3][kTile];
+  int n_in[3], next_in[3];
+};
+
+// every thread calls it; a __syncthreads must follow before tile_add
+template <int kTile>
+__device__ __forceinline__ void tile_init(Tile<kTile>& t) {
+  if (threadIdx.x < 3) {
+    t.n_in[threadIdx.x] = 0;
+    t.next_in[threadIdx.x] = 0;
+  }
+}
+
+// files `pr` at `slot` (< kTile, one slot a thread) under its class:
+// heavy above kHeavy compares, light at or below kLight
+template <int kTile, long long kLight, long long kHeavy>
+__device__ __forceinline__ void tile_add(Tile<kTile>& t, int slot,
+                                         const Pair& pr) {
+  const long long w = work(pr.merge != 0, pr.na, pr.nb);
+  const int cls = w > kHeavy ? 0 : (w > kLight ? 1 : 2);
+  t.pairs[slot] = pr;
+  t.lists[cls][atomicAdd(&t.n_in[cls], 1)] = (unsigned char)slot;
+}
+
+// counts every filed pair of the tile (after a __syncthreads) by every
+// thread of a block of T threads; emit(pair, count) is called once a pair,
+// by one thread. `stage` holds stage_cap ids, `red` T / 32 ints.
+template <int T, int G, int kTile, class Emit>
+__device__ __forceinline__ void tile_count(Tile<kTile>& t, int* stage,
+                                           int stage_cap, int* red,
+                                           const Emit& emit) {
+  static_assert(G == 8 || G == 16, "a light pair takes 8 or 16 lanes");
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  // heavy pairs: the whole block, one after another
+  const int* staged = nullptr;
+  for (int h = 0; h < t.n_in[0]; ++h) {
+    const Pair pr = t.pairs[t.lists[0][h]];
+    const int c = block_count<T>(pr.a, pr.na, pr.b, pr.nb, pr.merge != 0,
+                                 stage, stage_cap, staged, red);
+    if (tid == 0) emit(pr, c);
+  }
+
+  // medium pairs: one warp each
+  while (true) {
+    int k = 0;
+    if (lane == 0) k = atomicAdd(&t.next_in[1], 1);
+    k = __shfl_sync(kFull, k, 0);
+    if (k >= t.n_in[1]) break;
+    const Pair pr = t.pairs[t.lists[1][k]];
+    const int c = group_count<32>(pr.a, pr.na, pr.b, pr.nb, pr.merge != 0,
+                                  lane, kFull);
+    if (lane == 0) emit(pr, c);
+  }
+
+  // light pairs: G lanes each
+  const int g_lane = lane & (G - 1);
+  const unsigned g_mask = ((1u << G) - 1u) << (lane & ~(G - 1));
+  while (true) {
+    int k = 0;
+    if (g_lane == 0) k = atomicAdd(&t.next_in[2], 1);
+    k = __shfl_sync(g_mask, k, 0, G);
+    if (k >= t.n_in[2]) break;
+    const Pair pr = t.pairs[t.lists[2][k]];
+    const int c = group_count<G>(pr.a, pr.na, pr.b, pr.nb, pr.merge != 0,
+                                 g_lane, g_mask);
+    if (g_lane == 0) emit(pr, c);
+  }
 }
 
 }  // namespace pair_intersect

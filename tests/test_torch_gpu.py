@@ -525,18 +525,25 @@ def test_query_service_on_card_matches_plain_route(cross_rank):
     assert kernel == run(False)
 
 
-def _spmd_unit(rng, p, h, w, serve_cfg, f_pad, e_cfg, universe=None):
+def _spmd_unit(rng, p, h, w, serve_cfg, f_pad, e_cfg, universe=None,
+               landed=False, lens_hi=None):
     """A random SPMD unit: the resident buffer ``[p, H, W]`` (pad slot
-    last), serve slots ``[p, p, S_tot]`` (rows cut to their rung, phantom
-    positions at the pad slot), and a ``[p, E_tot]`` worklist over
-    ``[rows | fetched]`` whose sub-pairs fit their bucket's width, with
-    valid lengths and a mask (phantoms at the pad slot, length 0)."""
+    last; row lengths up to ``lens_hi``, default W), serve slots ``[p, p,
+    S_tot]`` (rows cut to their rung, phantom positions at the pad slot)
+    with their valid lengths and the landing's offsets ``[p, f_exact + 1]``
+    (the exclusive cumsum of the landed lengths in ``(j, f)`` order), and a
+    ``[p, E_tot]`` worklist over ``[rows | fetched]`` whose sub-pairs fit
+    their bucket's width, with valid lengths and a mask (phantoms at the
+    pad slot, length 0). ``landed``: fetched refs stay below ``f_exact``,
+    the rows a landing holds. Returns ``rows, serve_idx, lists, (serve_len,
+    land_off)``."""
     universe = universe or SENT
+    lens_hi = w if lens_hi is None else lens_hi
     rows = np.full((p, h, w), SENT, np.int32)
     lens = np.zeros((p, h), np.int32)
     for k in range(p):
         for s in range(h - 1):
-            n = int(rng.integers(0, w + 1))
+            n = int(rng.integers(0, lens_hi + 1))
             rows[k, s, :n] = np.sort(rng.choice(universe, n, replace=False))
             lens[k, s] = n
     serve = []
@@ -550,6 +557,7 @@ def _spmd_unit(rng, p, h, w, serve_cfg, f_pad, e_cfg, universe=None):
                     seg[k, j, :m] = rng.choice(fits, m)
         serve.append(seg)
     serve_idx = np.concatenate(serve, axis=2)
+    serve_len = lens[np.arange(p)[:, None, None], serve_idx]
     # the fetched rows' lengths follow the block's layout
     flen = np.zeros((p, f_pad), np.int32)
     for j in range(p):
@@ -557,9 +565,15 @@ def _spmd_unit(rng, p, h, w, serve_cfg, f_pad, e_cfg, universe=None):
         for s_b, _ in serve_cfg:
             for k in range(p):
                 flen[j, base + k * s_b: base + (k + 1) * s_b] = \
-                    lens[k, serve_idx[k, j, off: off + s_b]]
+                    serve_len[k, j, off: off + s_b]
             base += p * s_b
             off += s_b
+    f_exact = p * serve_idx.shape[2]
+    ends = np.cumsum(flen[:, :f_exact].reshape(-1)).reshape(p, f_exact)
+    land_off = np.zeros((p, f_exact + 1), np.int64)
+    land_off[:, 1:] = ends
+    if f_exact:
+        land_off[1:, 0] = ends[:-1, -1]
     all_len = np.concatenate([lens, flen], axis=1)
     a_idx, b_idx, mask = [], [], []
     for e_b, w_p in e_cfg:
@@ -568,6 +582,8 @@ def _spmd_unit(rng, p, h, w, serve_cfg, f_pad, e_cfg, universe=None):
         m = np.zeros((p, e_b), bool)
         for j in range(p):
             ok = np.flatnonzero(all_len[j] <= w_p)
+            if landed:
+                ok = ok[ok < h + f_exact]
             real = int(rng.integers(0, e_b + 1))
             a[j, :real] = rng.choice(ok, real)
             b[j, :real] = rng.choice(ok, real)
@@ -580,53 +596,124 @@ def _spmd_unit(rng, p, h, w, serve_cfg, f_pad, e_cfg, universe=None):
     rank = np.arange(p)[:, None]
     a_len = np.where(mask, all_len[rank, a_idx], 0).astype(np.int32)
     b_len = np.where(mask, all_len[rank, b_idx], 0).astype(np.int32)
-    return rows, serve_idx, (a_idx, b_idx, a_len, b_len, mask)
+    return (rows, serve_idx, (a_idx, b_idx, a_len, b_len, mask),
+            (serve_len.astype(np.int32), land_off))
 
 
 @pytest.mark.gpu
 def test_spmd_plane_kernels_on_card():
-    """B5 (``serve_block``) and B6 (``pair_counts``) against their plain
-    versions on the card, bit for bit: p 1 and 8, every rung of the
-    ladder, phantom serve and pair positions, the widest rung at W, a W
-    that is no multiple of 4 (the kernel's scalar copies), hub-like rows
-    sharing many ids, an all-phantom worklist; one launch a call."""
+    """B5 (``serve_landing``, ``serve_block``) and B6 (``pair_counts``,
+    ``pair_counts_landed``) against their plain versions on the card, bit
+    for bit: p 1 and 8, every rung of the ladder, phantom serve and pair
+    positions, the widest rung at W, a W that is no multiple of 4 (the
+    block kernel's scalar copies), rows of length 0, hub-like rows sharing
+    many ids, a unit whose heavy, medium and light classes are all filled,
+    an all-phantom worklist; the landing unpacked equals the block, and
+    one launch a call (none for a worklist with no real position)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
     from repro_torch.kernels import spmd_plane as sp
 
     rng = np.random.default_rng(8)
     cases = [
-        (1, 8, 16, [(2, 16)], 4, [(8, 16)], None),
+        (1, 8, 16, [(2, 16)], 4, [(8, 16)], None, None),
         (8, 24, 512, [(4, 16), (2, 64), (2, 256), (1, 512)], 128,
-         [(16, 16), (8, 64), (8, 256), (8, 512)], None),
-        (8, 12, 2048, [(1, 16), (2, 2048)], 32, [(8, 16), (16, 2048)], 3000),
-        (4, 6, 6, [(3, 6)], 16, [(8, 6)], None),
+         [(16, 16), (8, 64), (8, 256), (8, 512)], None, None),
+        (8, 12, 2048, [(1, 16), (2, 2048)], 32, [(8, 16), (16, 2048)], 3000,
+         None),
+        (4, 6, 6, [(3, 6)], 16, [(8, 6)], None, None),
+        (4, 8, 64, [(2, 16), (2, 64)], 16, [(8, 16), (8, 64)], None, 0),
     ]
     sp.reset_launches()
-    for p, h, w, serve_cfg, f_pad, e_cfg, universe in cases:
-        rows, serve_idx, lists = _spmd_unit(rng, p, h, w, serve_cfg, f_pad,
-                                            e_cfg, universe)
-        r = torch.from_numpy(rows).cuda()
-        s = torch.from_numpy(serve_idx).cuda()
-        got = sp.serve_block(r, s, serve_cfg, f_pad, sentinel=SENT)
-        torch.cuda.synchronize()
-        want = sp.serve_block_ref(r, s, serve_cfg, f_pad, sentinel=SENT)
-        assert got.dtype == torch.int32 and torch.equal(got, want), (p, w)
-        dl = [torch.from_numpy(x).cuda() for x in lists]
-        cnt = sp.pair_counts(r, got, *dl, pair_cfg=e_cfg, sentinel=SENT)
-        torch.cuda.synchronize()
-        want_cnt = sp.pair_counts_ref(r, got, *dl, pair_cfg=e_cfg,
-                                      sentinel=SENT)
-        assert cnt.dtype == torch.int32 and torch.equal(cnt, want_cnt)
-        assert int(cnt[~dl[4]].abs().sum()) == 0
-    assert sp.launches() == {"serve_block": len(cases),
-                             "pair_counts": len(cases)}
-    # an all-phantom worklist writes zeros
+    expect = dict.fromkeys(sp.launches(), 0)
+    for p, h, w, serve_cfg, f_pad, e_cfg, universe, lens_hi in cases:
+        for landed in (False, True):
+            rows, serve_idx, lists, (serve_len, land_off) = _spmd_unit(
+                rng, p, h, w, serve_cfg, f_pad, e_cfg, universe, landed,
+                lens_hi)
+            # a launch a call; none without a landed id or a real position
+            expect["serve_block"] += 1
+            expect["pair_counts"] += int(lists[4].any())
+            expect["serve_landing"] += landed * int(land_off[-1, -1] > 0)
+            expect["pair_counts_landed"] += landed * int(lists[4].any())
+            r = torch.from_numpy(rows).cuda()
+            s = torch.from_numpy(serve_idx).cuda()
+            got = sp.serve_block(r, s, serve_cfg, f_pad, sentinel=SENT)
+            torch.cuda.synchronize()
+            want = sp.serve_block_ref(r, s, serve_cfg, f_pad, sentinel=SENT)
+            assert got.dtype == torch.int32 and torch.equal(got, want), (p, w)
+            dl = [torch.from_numpy(x).cuda() for x in lists]
+            real = torch.nonzero(dl[4].reshape(-1)).reshape(-1).int()
+            want_cnt = sp.pair_counts_ref(r, got, *dl, pair_cfg=e_cfg,
+                                          sentinel=SENT)
+            assert int(want_cnt[~dl[4]].abs().sum()) == 0
+            if not landed:
+                cnt = sp.pair_counts(r, got, *dl, pair_cfg=e_cfg,
+                                     sentinel=SENT, real=real)
+                torch.cuda.synchronize()
+                assert cnt.dtype == torch.int32 and torch.equal(cnt, want_cnt)
+                continue
+            sl = torch.from_numpy(serve_len).cuda()
+            lo = torch.from_numpy(land_off).cuda()
+            n_ids = int(land_off[-1, -1])
+            items = torch.from_numpy(sp.landing_items(
+                np.diff(land_off, axis=1))).cuda()
+            landing = sp.serve_landing(r, s, sl, lo, serve_cfg, n_ids,
+                                       items=items)
+            torch.cuda.synchronize()
+            assert landing.dtype == torch.int32 and landing.numel() == n_ids
+            assert torch.equal(landing, sp.serve_landing_ref(
+                r, s, sl, lo, serve_cfg, n_ids))
+            assert torch.equal(sp.unpack_landing(landing, lo, w, SENT, f_pad),
+                               want)
+            cnt = sp.pair_counts_landed(r, landing, lo, *dl, pair_cfg=e_cfg,
+                                        sentinel=SENT, real=real)
+            blk = sp.pair_counts(r, got, *dl, pair_cfg=e_cfg, sentinel=SENT,
+                                 real=real)
+            torch.cuda.synchronize()
+            assert cnt.dtype == torch.int32 and torch.equal(cnt, want_cnt)
+            assert torch.equal(blk, want_cnt)
+            assert torch.equal(cnt, sp.pair_counts_landed_ref(
+                r, landing, lo, *dl, pair_cfg=e_cfg, sentinel=SENT))
+    assert sp.launches() == expect and min(expect.values()) > 0
+    # one tile with every class: heavy merges (9,000 ids against 6,000),
+    # heavy searches against the same hub row (staged once), medium and
+    # light pairs, an empty side and a phantom
+    lens = np.array([9000, 6000, 600, 300, 40, 10, 0, 0], np.int32)
+    hub = np.sort(rng.choice(1 << 15, 9000, replace=False)).astype(np.int32)
+    rows = np.full((1, 8, 9000), 1 << 15, np.int32)
+    for s_, n in enumerate(lens):
+        rows[0, s_, :n] = np.sort(rng.choice(hub, n, replace=False))
+    a = np.array([[0, 0, 3, 2, 4, 4, 5, 1, 6, 7]], np.int32)
+    b = np.array([[1, 1, 0, 0, 3, 2, 4, 0, 0, 7]], np.int32)
+    m = np.array([[True] * 9 + [False]])
+    r = torch.from_numpy(rows).cuda()
+    dl = [torch.from_numpy(x).cuda()
+          for x in (a, b, np.where(m, lens[a], 0).astype(np.int32),
+                    np.where(m, lens[b], 0).astype(np.int32), m)]
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    off = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
+    cnt = sp.pair_counts_landed(r, empty, off, *dl, pair_cfg=[(10, 9000)],
+                                sentinel=1 << 15,
+                                real=torch.arange(9, dtype=torch.int32,
+                                                  device="cuda"))
+    want = np.array([[np.intersect1d(rows[0, x, :lens[x]],
+                                     rows[0, y, :lens[y]]).size if mk else 0
+                      for x, y, mk in zip(a[0], b[0], m[0])]], np.int32)
+    assert cnt.dtype == torch.int32 and np.array_equal(cnt.cpu().numpy(), want)
+    assert list(want[0, [0, 2, 3, 7]]) == [6000, 300, 600, 6000]
+    # an all-phantom worklist writes zeros and launches nothing
+    sp.reset_launches()
     z = torch.zeros((2, 16), dtype=torch.int32, device="cuda")
     r = torch.full((2, 4, 8), SENT, dtype=torch.int32, device="cuda")
     out = sp.pair_counts(r, r, z, z, z, z, z.bool(), pair_cfg=[(16, 8)],
-                         sentinel=SENT)
+                         sentinel=SENT, real=empty)
     assert torch.equal(out, torch.zeros_like(out))
+    out = sp.pair_counts_landed(r, empty, off.expand(2, 1).contiguous(), z,
+                                z, z, z, z.bool(), pair_cfg=[(16, 8)],
+                                sentinel=SENT, real=empty)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert sum(sp.launches().values()) == 0
     with pytest.raises(ValueError, match="contiguous"):
         sp.serve_block(r.transpose(1, 2), torch.zeros(
             (2, 2, 2), dtype=torch.int32, device="cuda"), [(2, 4)], 4,
@@ -690,20 +777,23 @@ def test_spmd_executor_on_card_matches_cpu(hub):
     """The SPMD executor on the card (B5 and B6) against the same run on
     the CPU (their plain versions), p = 8, pipelined: a query service
     (1D and hub partition) and a stream, every answer, the stream state
-    and every ledger counter equal; both kernels launched."""
+    and every ledger counter equal; the landed route's kernels launched,
+    the block's never."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
     from repro_torch.kernels import spmd_plane as sp
 
     sp.reset_launches()
     card = _spmd_service("cuda", 8, hub, True)
-    assert sp.launches()["serve_block"] > 0
-    assert sp.launches()["pair_counts"] > 0
+    assert sp.launches()["serve_landing"] > 0
+    assert sp.launches()["pair_counts_landed"] > 0
+    assert sp.launches()["serve_block"] == sp.launches()["pair_counts"] == 0
     assert card == _spmd_service("cpu", 8, hub, True)
     if not hub:
         sp.reset_launches()
         card = _spmd_stream("cuda", 8, True)
-        assert min(sp.launches().values()) > 0
+        assert sp.launches()["serve_landing"] > 0
+        assert sp.launches()["pair_counts_landed"] > 0
         assert card == _spmd_stream("cpu", 8, True)
 
 

@@ -643,12 +643,24 @@ _TIMED = re.compile(
 def _launch_lines(text, open_loop):
     lines = [_TIMED.sub("<timed>", ln) for ln in text.splitlines()]
     if open_loop:
-        # HybridClock: admissions, sheds and latencies follow real time;
-        # only the answers (checked by --verify on each side) and the
-        # arrival trace (compared below) are comparable.
-        keep = ("R-MAT", "verified", "arrival trace")
+        # HybridClock: admissions, sheds and latencies follow real time,
+        # and with them how many queries are served and verified; only the
+        # graph and the arrival trace (compared below) are comparable.
+        # Each side's answers are checked by its own --verify
+        # (_verified_all).
+        keep = ("R-MAT", "arrival trace")
         lines = [ln for ln in lines if ln.startswith(keep)]
     return lines
+
+
+def _verified_all(text, served):
+    """The launcher's ``verified: N ... bit-exact vs recount, 0 stale
+    cached rows`` line is there, with N its own count of served point
+    queries: every answer was checked."""
+    found = re.findall(r"^verified: (\d+) point queries bit-exact vs "
+                       r"recount, 0 stale cached rows$", text, re.M)
+    assert len(found) == 1, text[-2000:]
+    assert int(found[0]) == served > 0, (found, served)
 
 
 @pytest.mark.parametrize("flags", [
@@ -683,6 +695,10 @@ def test_launcher_matches_reference(flags, capsys, tmp_path):
                               open_loop)
     assert got_lines == want_lines
     assert res["served"] > 0 and res["latency"].count == res["served"]
+    _verified_all(got, res["served"])
+    ref_served = re.findall(r"^served (\d+) queries in ", want, re.M)
+    assert len(ref_served) == 1
+    _verified_all(want, int(ref_served[0]))
     if open_loop:
         a, b = RefArrivalTrace.load(str(ref_out)), ArrivalTrace.load(
             str(port_out))

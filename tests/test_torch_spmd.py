@@ -267,7 +267,8 @@ def test_pair_counts_matches_reference_body(use_kernel):
     t = torch.from_numpy
     got = spmd_plane.pair_counts(t(rows[None]), t(fetched[None]), t(a_idx),
                                  t(b_idx), t(a_len), t(b_len), t(mask),
-                                 pair_cfg=pair_cfg, sentinel=SENT)
+                                 pair_cfg=pair_cfg, sentinel=SENT,
+                                 real=real_of(t(mask)))
     ref = ref_spmd.SpmdIntersectExecutor(ref_partition_1d(SENT, 1), SENT,
                                          use_kernel=use_kernel)
     fn = ref._fn_pairs(h, f_pad, w,
@@ -283,6 +284,224 @@ def test_pair_counts_matches_reference_body(use_kernel):
         rows[None], fetched[None], a_idx, b_idx, a_len, b_len, mask))
 
 
+def landing_of(fetched, lens):
+    """The packed landing of the rows ``fetched [p, F, W]`` with valid
+    lengths ``lens [p, F]`` and its offsets ``[p, F + 1]``."""
+    p, f, _ = fetched.shape
+    landing = np.concatenate(
+        [fetched[j, i, : lens[j, i]] for j in range(p) for i in range(f)]
+        or [np.zeros(0, np.int32)]).astype(np.int32)
+    return landing, spmd._exclusive_rows(lens)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_serve_landing_matches_reference_body(use_kernel):
+    """B5's landing, unpacked to the block, equals the reference's compiled
+    ``_body_serve`` on the same inputs (p = 1: the rank serves itself)."""
+    rng = np.random.default_rng(23)
+    h, w = 16, 64
+    rows, _ = padded_rows(rng, h, w, SENT)
+    rows[-1] = SENT  # the pad slot
+    serve_cfg = [(4, 16), (2, 32), (8, 64)]
+    idx = []
+    for s_b, w_b in serve_cfg:
+        seg = rng.integers(0, h, size=s_b).astype(np.int32)
+        seg[-1] = h - 1  # a phantom position
+        rows[seg[:-1], w_b:] = SENT
+        idx.append(seg)
+    lens = (rows < SENT).sum(1).astype(np.int32)
+    serve_idx = np.concatenate(idx)[None, None, :]
+    serve_len = lens[serve_idx]
+    land_off = spmd._exclusive_rows(serve_len[0])  # p = 1: (j, f) = pos
+    n_ids = int(land_off[-1, -1])
+    f_pad = 32
+    t = torch.from_numpy
+    landing = spmd_plane.serve_landing(t(rows[None]), t(serve_idx),
+                                       t(serve_len), t(land_off), serve_cfg,
+                                       n_ids, items=items_of(land_off))
+    ref = ref_spmd.SpmdIntersectExecutor(ref_partition_1d(SENT, 1), SENT,
+                                         use_kernel=use_kernel)
+    fn = ref._fn_serve(h, w, tuple(serve_cfg), f_pad)
+    want = np.asarray(fn(jnp.asarray(rows[None]), jnp.asarray(serve_idx)))
+    assert landing.dtype == torch.int32 and want.dtype == np.int32
+    assert landing.shape == (n_ids,) and 0 < n_ids < f_pad * w
+    got = spmd_plane.unpack_landing(landing, t(land_off), w, SENT, f_pad)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(numpy_unpack(landing.numpy(), land_off, w, SENT),
+                          want[:, : land_off.shape[1] - 1])
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_pair_counts_landed_matches_reference_body(use_kernel):
+    """B6 on a landing equals the reference's compiled ``_body_pairs`` on
+    the block the landing unpacks to (f_exact 12 of f_pad 16 rows)."""
+    rng = np.random.default_rng(24)
+    h, f_exact, f_pad, w = 24, 12, 16, 64
+    rows, rlen = padded_rows(rng, h, w, SENT, universe=256)
+    fetched, flen = padded_rows(rng, f_exact, w, SENT, universe=256)
+    rows[-1], rlen[-1] = SENT, 0
+    lens = np.concatenate([rlen, flen])
+    pair_cfg, a_segs, b_segs, m_segs = [], [], [], []
+    for e_b, w_p in ((8, 16), (16, 64)):
+        ok = np.flatnonzero(lens <= w_p)
+        a = rng.choice(ok, size=e_b).astype(np.int32)
+        bb = rng.choice(ok, size=e_b).astype(np.int32)
+        m = rng.random(e_b) < 0.8
+        a[~m] = bb[~m] = h - 1
+        pair_cfg.append((e_b, w_p))
+        a_segs.append(a)
+        b_segs.append(bb)
+        m_segs.append(m)
+    a_idx = np.concatenate(a_segs)[None]
+    b_idx = np.concatenate(b_segs)[None]
+    mask = np.concatenate(m_segs)[None]
+    a_len = np.where(mask, lens[a_idx], 0).astype(np.int32)
+    b_len = np.where(mask, lens[b_idx], 0).astype(np.int32)
+    landing, land_off = landing_of(fetched[None], flen[None])
+    t = torch.from_numpy
+    lists = [t(x) for x in (a_idx, b_idx, a_len, b_len, mask)]
+    real = t(np.flatnonzero(mask).astype(np.int32))
+    got = spmd_plane.pair_counts_landed(t(rows[None]), t(landing),
+                                        t(land_off), *lists,
+                                        pair_cfg=pair_cfg, sentinel=SENT,
+                                        real=real)
+    block = np.full((1, f_pad, w), SENT, np.int32)
+    block[0, :f_exact] = fetched
+    ref = ref_spmd.SpmdIntersectExecutor(ref_partition_1d(SENT, 1), SENT,
+                                         use_kernel=use_kernel)
+    fn = ref._fn_pairs(h, f_pad, w,
+                       tuple((e, wp, min(128, e)) for e, wp in pair_cfg))
+    want = np.asarray(fn(jnp.asarray(rows[None]), jnp.asarray(block),
+                         jnp.asarray(a_idx), jnp.asarray(b_idx),
+                         jnp.asarray(mask)))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    assert np.array_equal(got.numpy(), want)
+    assert (want[~mask] == 0).all() and want.sum() > 0
+    assert (a_idx[mask] >= h).any() and (b_idx[mask] >= h).any()
+    assert np.array_equal(got.numpy(), prefix_counts(
+        rows[None], block, a_idx, b_idx, a_len, b_len, mask))
+
+
+LANDING_CASES = {
+    # name: (p, h, w, serve_cfg, f_pad, e_cfg, lens_hi)
+    "rows_of_length_0": (4, 8, 64, [(2, 16), (2, 64)], 16,
+                         [(8, 16), (8, 64)], 0),
+    "rung_at_w": (4, 10, 64, [(3, 16), (2, 64)], 32, [(8, 16), (8, 64)],
+                  None),
+    "w_no_multiple_of_4": (4, 6, 6, [(3, 6)], 16, [(8, 6)], None),
+    "p1": (1, 8, 16, [(2, 16)], 4, [(8, 16)], None),
+    "p8": (8, 24, 512, [(4, 16), (2, 64), (2, 256), (1, 512)], 128,
+           [(16, 16), (8, 64), (8, 256), (8, 512)], None),
+}
+
+
+@pytest.mark.parametrize("name", list(LANDING_CASES))
+def test_landing_edge_cases(name):
+    """The landed route through the wrappers (plain versions here) on
+    ``tests/test_torch_gpu.py``'s units: the landing unpacked equals the
+    block (``serve_block_ref`` and a numpy construction), and the counts on
+    it equal ``pair_counts_ref`` on the block and the kernel's contract;
+    an all-phantom worklist counts 0."""
+    from test_torch_gpu import _spmd_unit
+
+    p, h, w, serve_cfg, f_pad, e_cfg, lens_hi = LANDING_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    rows, serve_idx, lists, (serve_len, land_off) = _spmd_unit(
+        rng, p, h, w, serve_cfg, f_pad, e_cfg, SENT, True, lens_hi)
+    assert np.array_equal(land_off, spmd._exclusive_rows(
+        numpy_unpack_lens(serve_len, serve_cfg)))
+    n_ids = int(land_off[-1, -1])
+    t = torch.from_numpy
+    r, s, lo = t(rows), t(serve_idx), t(land_off)
+    landing = spmd_plane.serve_landing(r, s, t(serve_len), lo, serve_cfg,
+                                       n_ids, items=items_of(land_off))
+    assert landing.dtype == torch.int32 and landing.shape == (n_ids,)
+    assert (n_ids == 0) == (lens_hi == 0)
+    block = spmd_plane.serve_block_ref(r, s, serve_cfg, f_pad, sentinel=SENT)
+    assert torch.equal(spmd_plane.unpack_landing(landing, lo, w, SENT, f_pad),
+                       block)
+    assert np.array_equal(numpy_unpack(landing.numpy(), land_off, w, SENT),
+                          numpy_block(rows, serve_idx, serve_cfg,
+                                      land_off.shape[1] - 1, SENT))
+    dl = [t(x) for x in lists]
+    for mask in (dl[4], torch.zeros_like(dl[4])):  # then all phantom
+        got = spmd_plane.pair_counts_landed(r, landing, lo, *dl[:4], mask,
+                                            pair_cfg=e_cfg, sentinel=SENT,
+                                            real=real_of(mask))
+        want = spmd_plane.pair_counts_ref(r, block, *dl[:4], mask,
+                                          pair_cfg=e_cfg, sentinel=SENT)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert np.array_equal(got.numpy(), prefix_counts(
+            rows, block.numpy(), *lists[:4], mask.numpy()))
+    assert int(got.abs().sum()) == 0
+
+
+def test_landing_items_cover_every_landed_id_once():
+    """The landing kernel's work list: a ``(row, chunk)`` pair for each
+    ``LAND_CHUNK`` ids of each row of nonzero length, rows in landing
+    order, none for an empty row."""
+    c = spmd_plane.LAND_CHUNK
+    lens = np.array([[0, 1, c, 0], [c + 1, 3 * c - 5, 0, 7]], np.int32)
+    items = spmd_plane.landing_items(lens)
+    assert items.dtype == np.int32 and items.shape == (1 + 1 + 2 + 3 + 1, 2)
+    assert items.tolist() == [[1, 0], [2, 0], [4, 0], [4, 1], [5, 0],
+                              [5, 1], [5, 2], [7, 0]]
+    covered = sum(min(lens.reshape(-1)[r] - k * c, c) for r, k in items)
+    assert covered == lens.sum()
+    assert spmd_plane.landing_items(np.zeros((3, 0), np.int32)).shape == (0, 2)
+
+
+def numpy_unpack_lens(serve_len, serve_cfg):
+    """The landed lengths ``[p (dst), f_exact]`` in ``(j, f)`` order."""
+    p = serve_len.shape[0]
+    out, off = [], 0
+    for s_b, _ in serve_cfg:
+        out.append(serve_len[:, :, off: off + s_b].transpose(1, 0, 2)
+                   .reshape(p, p * s_b))
+        off += s_b
+    return np.concatenate(out, axis=1)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_unit_without_serve_traffic(use_kernel, monkeypatch):
+    """A unit at p = 2 whose rows are all held where they are read: no B5
+    call, B6 on the empty landing (kernel route) or the cached sentinel
+    block (plain route), counts equal to the reference's loop."""
+    rng = np.random.default_rng(25)
+    n = 32
+    rows = random_rows(rng, n, lo=1)
+    calls = []
+    for name in ("serve_landing", "serve_block_ref", "pair_counts_landed",
+                 "pair_counts_ref"):
+        fn = getattr(spmd_plane, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls.append((_name, args[1].shape))
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(spmd_plane, name, spy)
+    ex = spmd.SpmdIntersectExecutor(partition_1d(n, 2), n, device="cpu",
+                                    use_kernel=use_kernel)
+    shards, want = [], []
+    for j in range(2):
+        a = rng.integers(0, n, size=12).astype(np.int64)
+        b = rng.integers(0, n, size=12).astype(np.int64)
+        held = {int(v): rows[int(v)]
+                for v in np.unique(np.concatenate([a, b]))}
+        shards.append(spmd.ShardWork(j, a, b, held))
+        want.append(oracle(rows, a, b))
+    counts, unit = ex.run(shards, FakeStore(rows))
+    assert all(c.dtype == np.int64 and np.array_equal(c, w)
+               for c, w in zip(counts, want))
+    assert unit.n_collectives == 0 and unit.total_rows == 0
+    assert not any(name.startswith("serve") for name, _ in calls)
+    if use_kernel:  # the empty landing (its plain version, here, after it)
+        assert calls[0] == ("pair_counts_landed", (0,))
+    else:
+        assert [c[0] for c in calls] == ["pair_counts_ref"]
+        assert calls[0][1][0] == 2 and ex._empty_blocks
+
+
 def test_wrappers_refuse_bad_inputs():
     r = torch.zeros((2, 4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="p, p, S_tot"):
@@ -295,16 +514,63 @@ def test_wrappers_refuse_bad_inputs():
         spmd_plane.serve_block(r.long(), torch.zeros((2, 2, 4)), [(4, 8)],
                                8, sentinel=9)
     z = torch.zeros((2, 8), dtype=torch.int32)
+    none = z.new_zeros(0)  # no real position
     with pytest.raises(ValueError, match="do not sum"):
         spmd_plane.pair_counts(r, r, z, z, z, z, z.bool(),
-                               pair_cfg=[(4, 8)], sentinel=9)
+                               pair_cfg=[(4, 8)], sentinel=9, real=none)
     with pytest.raises(TypeError, match="bool"):
         spmd_plane.pair_counts(r, r, z, z, z, z, z, pair_cfg=[(8, 8)],
-                               sentinel=9)
+                               sentinel=9, real=none)
+    with pytest.raises(TypeError, match="real"):
+        spmd_plane.pair_counts(r, r, z, z, z, z, z.bool(),
+                               pair_cfg=[(8, 8)], sentinel=9)
+    with pytest.raises(TypeError, match="real: expected int32"):
+        spmd_plane.pair_counts(r, r, z, z, z, z, z.bool(),
+                               pair_cfg=[(8, 8)], sentinel=9,
+                               real=none.long())
     out = spmd_plane.pair_counts(r, r, z, z, z, z, z.bool(),
-                                 pair_cfg=[(8, 8)], sentinel=9)
+                                 pair_cfg=[(8, 8)], sentinel=9, real=none)
     assert out.dtype == torch.int32 and (out == 0).all()
-    assert spmd_plane.launches() == {"serve_block": 0, "pair_counts": 0}
+    idx = torch.zeros((2, 2, 4), dtype=torch.int32)
+    off = torch.zeros((2, 9), dtype=torch.int64)
+    items = torch.zeros((0, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="f_exact"):
+        spmd_plane.serve_landing(r, idx, idx, off[:, :3], [(4, 8)], 0,
+                                 items=items)
+    with pytest.raises(TypeError, match="int64"):
+        spmd_plane.serve_landing(r, idx, idx, off.int(), [(4, 8)], 0,
+                                 items=items)
+    with pytest.raises(ValueError, match="S_tot"):
+        spmd_plane.serve_landing(r, idx, idx[:, :1], off, [(4, 8)], 0,
+                                 items=items)
+    with pytest.raises(TypeError, match="items"):
+        spmd_plane.serve_landing(r, idx, idx, off, [(4, 8)], 0)
+    with pytest.raises(ValueError, match="landing"):
+        spmd_plane.pair_counts_landed(r, r, off, z, z, z, z, z.bool(),
+                                      pair_cfg=[(8, 8)], sentinel=9,
+                                      real=none)
+    with pytest.raises(TypeError, match="real"):
+        spmd_plane.pair_counts_landed(
+            r, torch.zeros(0, dtype=torch.int32), off[:, :1], z, z, z, z,
+            z.bool(), pair_cfg=[(8, 8)], sentinel=9)
+    out = spmd_plane.pair_counts_landed(
+        r, torch.zeros(0, dtype=torch.int32), off[:, :1], z, z, z, z,
+        z.bool(), pair_cfg=[(8, 8)], sentinel=9, real=none)
+    assert out.dtype == torch.int32 and (out == 0).all()
+    assert spmd_plane.launches() == {"serve_landing": 0, "serve_block": 0,
+                                     "pair_counts_landed": 0,
+                                     "pair_counts": 0}
+
+
+def real_of(mask):
+    """B6's list of real positions: the flat positions of ``mask``."""
+    return torch.nonzero(mask.reshape(-1)).reshape(-1).to(torch.int32)
+
+
+def items_of(land_off):
+    """B5's work list from the landing's offsets (``landing_items``)."""
+    return torch.from_numpy(spmd_plane.landing_items(
+        np.diff(np.asarray(land_off), axis=1)))
 
 
 def prefix_counts(rows, fetched, a_idx, b_idx, a_len, b_len, mask):
@@ -324,49 +590,79 @@ def prefix_counts(rows, fetched, a_idx, b_idx, a_len, b_len, mask):
 
 
 class UnitRecorder:
-    """Wraps ``spmd_plane.serve_block`` / ``pair_counts`` (``kernel``) or
-    their plain versions as the executor calls them: each call's inputs
-    and output kept as numpy."""
+    """Wraps the executor's B5 and B6 entry points as it calls them — the
+    landed route's ``serve_landing`` / ``pair_counts_landed`` (``kernel``)
+    or the plain route's ``serve_block_ref`` / ``pair_counts_ref`` — and
+    keeps each call's inputs and output as numpy."""
 
     def __init__(self, monkeypatch, kernel=True):
         self.serve, self.pairs = [], []
-        names = (("serve_block", "pair_counts") if kernel
-                 else ("serve_block_ref", "pair_counts_ref"))
 
-        def rec_serve(fn):
-            def call(rows, serve_idx, serve_cfg, f_pad, *, sentinel):
-                out = fn(rows, serve_idx, serve_cfg, f_pad, sentinel=sentinel)
-                self.serve.append((rows.numpy().copy(), serve_idx.numpy(),
-                                   list(serve_cfg), f_pad, out.numpy()))
+        def np_args(args):
+            return [a.numpy().copy() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+
+        def rec(fn, kind, calls):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                calls.append((kind, np_args(args),
+                              dict(zip(kw, np_args(kw.values()))),
+                              out.numpy().copy()))
                 return out
             return call
 
-        def rec_pairs(fn):
-            def call(rows, fetched, *lists, pair_cfg, sentinel):
-                out = fn(rows, fetched, *lists, pair_cfg=pair_cfg,
-                         sentinel=sentinel)
-                self.pairs.append((rows.numpy().copy(),
-                                   fetched.numpy().copy(),
-                                   [x.numpy().copy() for x in lists],
-                                   list(pair_cfg), out.numpy()))
-                return out
-            return call
-
-        for name, rec in zip(names, (rec_serve, rec_pairs)):
+        if kernel:
+            names = (("serve_landing", "landing", self.serve),
+                     ("pair_counts_landed", "landing", self.pairs))
+        else:
+            names = (("serve_block_ref", "block", self.serve),
+                     ("pair_counts_ref", "block", self.pairs))
+        for name, kind, calls in names:
             monkeypatch.setattr(spmd_plane, name,
-                                rec(getattr(spmd_plane, name)))
+                                rec(getattr(spmd_plane, name), kind, calls))
 
     def check(self, sentinel):
         """Every recorded B6 call equals the kernel's contract (prefix
-        counts by index); every B5 call equals an independent numpy
-        construction of the block."""
+        counts by index; on the landed route the real positions it
+        launches over are the mask's); every B5 call equals an independent
+        numpy construction of the block (a landing unpacked to it)."""
         assert self.pairs
-        for rows, fetched, lists, cfg, out in self.pairs:
+        for kind, args, kw, out in self.pairs:
             assert out.dtype == np.int32
+            if kind == "landing":
+                rows, landing, land_off, *lists = args
+                fetched = numpy_unpack(landing, land_off, rows.shape[2],
+                                       sentinel)
+                assert kw["real"].dtype == np.int32
+                assert np.array_equal(kw["real"],
+                                      np.flatnonzero(lists[4]))
+            else:
+                rows, fetched, *lists = args
             assert np.array_equal(out, prefix_counts(rows, fetched, *lists))
-        for rows, idx, cfg, f_pad, out in self.serve:
+        for kind, args, kw, out in self.serve:
+            if kind == "landing":
+                rows, idx, serve_len, land_off, cfg, n_ids = args
+                assert out.dtype == np.int32 and out.size == n_ids
+                assert land_off[-1, -1] == n_ids
+                assert np.array_equal(kw["items"], spmd_plane.landing_items(
+                    np.diff(land_off, axis=1)))
+                f_pad = land_off.shape[1] - 1
+                out = numpy_unpack(out, land_off, rows.shape[2], sentinel)
+            else:
+                rows, idx, cfg, f_pad = args
             assert np.array_equal(out, numpy_block(rows, idx, cfg, f_pad,
                                                    sentinel))
+
+
+def numpy_unpack(landing, land_off, w, sentinel):
+    """A landing laid out as the ``[p, f_exact, W]`` block, in numpy."""
+    p, f1 = land_off.shape
+    out = np.full((p, f1 - 1, w), sentinel, np.int32)
+    for j in range(p):
+        for f in range(f1 - 1):
+            lo, hi = land_off[j, f], land_off[j, f + 1]
+            out[j, f, : hi - lo] = landing[lo:hi]
+    return out
 
 
 def numpy_block(rows, serve_idx, serve_cfg, f_pad, sentinel):
@@ -564,13 +860,20 @@ def test_serving_loop_vs_spmd_p1_device_per_rank():
 
 def test_serving_spmd_through_the_wrappers(monkeypatch):
     """``use_kernel=True`` on the CPU routes the executor through the
-    wrappers (their plain versions here): the same answers as the
-    reference, and every recorded unit equal to the kernels' contract."""
+    wrappers of the landed route (their plain versions here): the same
+    answers as the reference at p = 1 and 4, and every recorded unit equal
+    to the kernels' contract."""
     rec = UnitRecorder(monkeypatch)
     got = run_serving("port", "spmd", 1, 0, use_kernel=True)
     assert got[0].engine.spmd.use_kernel is True
     serving_agrees(got, run_serving("ref", "loop", 1, 0))
     rec.check(got[0].store.n)
+    # p = 4: rows ship, so the landed route's B5 runs too
+    rec = UnitRecorder(monkeypatch)
+    got = run_serving("port", "spmd", 4, 0, use_kernel=True)
+    serving_agrees(got, run_serving("ref", "loop", 4, 0))
+    rec.check(got[0].store.n)
+    assert rec.serve and all(kind == "landing" for kind, *_ in rec.serve)
 
 
 def test_spmd_requires_a_runtime_and_pipeline_requires_spmd():
