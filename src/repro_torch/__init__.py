@@ -19,10 +19,10 @@ training):
              B9 segment_sum_sorted, B10 embedding_bag), their wrappers and
              plain torch versions, width bucketing
   configs/   the LM / GNN / recsys / paper-lcc configs, the ``--arch``
-             registry (MACE raises: not ported yet) and the cell shapes
+             registry and the cell shapes
   models/    the dense LM transformer (prefill, decode; B8 on the long
-             prompt path), DIN and embedding bags (B10), GIN / GAT / PNA
-             (every aggregation through B9)
+             prompt path), DIN and embedding bags (B10), GIN / GAT / PNA /
+             MACE (every aggregation through B9)
   data/      the seeded CTR stream
   train/     step factories (serving, GNN training), AdamW, checkpoints
   distributed/  the restartable training loop and straggler monitor

@@ -8,8 +8,8 @@ Two modes sharing one shape computation:
 - ``make_smoke_batch(arch_id, kind, rng)``: small concrete numpy batches
   with identical structure, the reference's draws from the same ``rng``.
 
-GNN features and labels are synthetic with the assigned dims. MACE is not
-ported yet (``get_arch`` raises for it), so its branches are left out.
+GNN features and labels are synthetic with the assigned dims; MACE takes
+species ids, 3D positions and float energy labels.
 """
 from __future__ import annotations
 
@@ -84,8 +84,15 @@ def cell_shapes(arch: ArchEntry, cfg, shape) -> Dict[str, Tuple[tuple, Any]]:
             "edge_dst": ((e,), I32),
             "edge_mask": ((e,), BOOL),
             "node_mask": ((n,), BOOL),
-            "node_feat": ((n, d), F32),
         }
+        if cfg.__class__.__name__ == "MACEConfig":
+            out["node_feat"] = ((n,), I32)  # species ids
+            out["positions"] = ((n, 3), F32)
+            out["graph_ids"] = ((n,), I32)
+            # one energy per graph; a single graph for the other shapes
+            out["labels"] = ((n_out if g.kind == "batched" else 1,), F32)
+            return out
+        out["node_feat"] = ((n, d), F32)
         if g.kind == "batched":
             out["graph_ids"] = ((n,), I32)
             out["labels"] = ((n_out,), I32)
@@ -148,8 +155,9 @@ def input_specs(arch_id: str, shape_id: str):
 
 
 def _adapt_cfg(arch: ArchEntry, cfg, shape_id: str, shape):
-    """A GNN config with the shape's feature width and class count."""
-    if arch.family != "gnn":
+    """A GNN config with the shape's feature width and class count; MACE's
+    (species ids, energies) is unchanged."""
+    if arch.family != "gnn" or cfg.__class__.__name__ == "MACEConfig":
         return cfg
     kw = {"d_in": gnn_feat_dim(cfg, shape)}
     if hasattr(cfg, "n_classes") and cfg.__class__.__name__ != "PNAConfig":
@@ -187,8 +195,18 @@ def make_smoke_batch(arch_id: str, kind: str, rng: np.random.Generator):
             "edge_mask": (rng.random(e) < 0.9),
             "node_mask": np.ones(n, bool),
         }
-        batch["node_feat"] = rng.normal(size=(n, cfg.d_in)).astype(np.float32)
         graph_ids = (np.arange(n) * SMOKE_GNN["n_graphs"] // n).astype(np.int32)
+        if cfg.__class__.__name__ == "MACEConfig":
+            batch["node_feat"] = rng.integers(0, cfg.n_species, size=n).astype(
+                np.int32
+            )
+            batch["positions"] = rng.normal(size=(n, 3)).astype(np.float32)
+            batch["graph_ids"] = graph_ids
+            batch["labels"] = rng.normal(size=SMOKE_GNN["n_graphs"]).astype(
+                np.float32
+            )
+            return cfg, batch
+        batch["node_feat"] = rng.normal(size=(n, cfg.d_in)).astype(np.float32)
         if cfg.__class__.__name__ == "GINConfig":
             batch["graph_ids"] = graph_ids
             batch["labels"] = rng.integers(

@@ -1,6 +1,5 @@
 """Architecture registry: --arch <id> resolution for the port's launchers
-and tests. MACE is known by id but not ported yet: ``get_arch`` raises
-``NotImplementedError`` for it."""
+and tests; every id of the reference's registry."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +10,7 @@ from . import (
     gat_cora,
     gemma2_27b,
     gin_tu,
+    mace,
     moonshot_v1_16b_a3b,
     paper_lcc,
     phi35_moe_42b_a6_6b,
@@ -20,7 +20,7 @@ from . import (
 )
 from .shapes import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES
 
-__all__ = ["ArchEntry", "ARCHS", "NOT_PORTED", "get_arch", "shape_table"]
+__all__ = ["ArchEntry", "ARCHS", "get_arch", "shape_table"]
 
 _MODULES = [
     moonshot_v1_16b_a3b,
@@ -28,15 +28,13 @@ _MODULES = [
     stablelm_1_6b,
     gemma2_27b,
     qwen25_14b,
+    mace,
     pna,
     gin_tu,
     gat_cora,
     din,
     paper_lcc,
 ]
-
-# ids of the reference's registry not ported yet, and their family
-NOT_PORTED = {"mace": "gnn"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +72,7 @@ ARCHS: Dict[str, ArchEntry] = {
 
 
 def get_arch(arch_id: str) -> ArchEntry:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(f"not ported yet: {NOT_PORTED[arch_id]}")
     if arch_id not in ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: "
-                       f"{sorted(ARCHS) + sorted(NOT_PORTED)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
 

@@ -136,7 +136,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "write the cachescope analysis sidecar (reuse "
                          "distances, Mattson hit-rate curve, eviction "
                          "audit, offline policy replay incl. Belady; "
-                         "validated by repro.obs.validate --cachescope)")
+                         "validated by repro_torch.obs.validate "
+                         "--cachescope)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.trace_fine and not args.trace:

@@ -3,6 +3,7 @@
     python -m repro_torch.launch.train --arch gin-tu --steps 20
     python -m repro_torch.launch.train --arch gat-cora --steps 30 --device cpu
     python -m repro_torch.launch.train --arch pna --ckpt-dir ckpt --resume
+    python -m repro_torch.launch.train --arch mace --steps 5 --device cpu
 
 The launcher wires config -> model -> batch -> optimizer -> ``TrainRunner``
 (checkpoint/restart, straggler monitor); ``--resume`` continues from the
@@ -40,6 +41,7 @@ GNN_MODULES = {
     "pna": "repro_torch.models.gnn.pna",
     "gin-tu": "repro_torch.models.gnn.gin",
     "gat-cora": "repro_torch.models.gnn.gat",
+    "mace": "repro_torch.models.gnn.mace",
 }
 
 

@@ -5,7 +5,7 @@
 - ``repro_torch.obs.metrics`` — one ``(name, rank, tier, phase)``-labeled
   registry with adapters over the existing stat ledgers and a
   serializable snapshot.
-- ``repro.obs.validate`` — CLI + library checks for the exported
+- ``repro_torch.obs.validate`` — CLI + library checks for the exported
   artifacts (Chrome-trace schema, span-tree nesting, cross-ledger
   accounting invariants, cachescope replay reconciliation).
 - ``repro_torch.obs.cachescope`` — per-rank, per-tier cache access-trace

@@ -38,7 +38,7 @@ turns one recorded run into the full cache-science picture:
    same trace re-run under the deployed policy, pure LRU, degree
    (size-proportional) score, frequency-EWMA score, and a clairvoyant
    Belady upper bound. The hard invariant — checked by ``analyze`` and
-   re-checked by ``repro.obs.validate`` on the exported sidecar — is
+   re-checked by ``repro_torch.obs.validate`` on the exported sidecar — is
    that the *deployed*-policy replay reproduces the live ``CacheStats``
    deltas (gets/hits/misses/evictions/...) bit-exactly: the recorded
    stream provably contains everything the cache decided on.

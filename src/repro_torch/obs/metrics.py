@@ -29,8 +29,8 @@ them measurable: ``load_imbalance`` (max/mean of per-rank row reads)
 and ``serve_matrix_skew`` (max/mean of per-owner rows served).
 
 ``MetricRegistry.to_dict()``/``save()`` give the serializable snapshot
-the launchers write for ``--metrics``; ``repro.obs.validate`` checks the
-cross-ledger invariants on that snapshot.
+the launchers write for ``--metrics``; ``repro_torch.obs.validate``
+checks the cross-ledger invariants on that snapshot.
 """
 from __future__ import annotations
 

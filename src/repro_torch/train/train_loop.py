@@ -66,9 +66,14 @@ def make_lm_decode_step(cfg):
 def _gnn_loss(apply_fn, cfg, params, batch):
     """The reference's GNN loss: cross-entropy for integer labels (masked
     when the batch has ``label_mask``; graph labels over node logits are
-    mean-pooled first), mean squared error for float labels. MACE's
-    energy branch comes with MACE."""
+    mean-pooled first), mean squared error for float labels, and for a
+    model that returns a tuple (MACE's node and graph energies) the mean
+    squared error of the graph energies."""
     out = apply_fn(params, batch, cfg)
+    if isinstance(out, tuple):  # MACE: (node_e, graph_e) — energy regression
+        _, energy = out
+        return torch.mean(torch.square(energy.to(torch.float32)
+                                       - batch["labels"].to(torch.float32)))
     labels = batch["labels"]
     if labels.dtype in (torch.int32, torch.int64):  # classification
         logits = out

@@ -248,8 +248,8 @@ def test_lcc_run_writes_trace_metrics_and_cache_sidecar(tmp_path, capsys):
     out = capsys.readouterr().out
     for path in (trace, metrics, side):
         assert path.stat().st_size > 0 and str(path) in out
-    # the reference's validator accepts the port's artifacts
-    from repro.obs import validate
+    # the port's validator accepts the port's artifacts
+    from repro_torch.obs import validate
 
     assert validate.main(["--trace", str(trace), "--metrics", str(metrics),
                           "--cachescope", str(side)]) == 0

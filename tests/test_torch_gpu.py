@@ -373,6 +373,44 @@ def test_segment_sum_sorted_kernel_on_card():
     assert ss.launches() == n_calls + 1  # a refused call launches nothing
 
 
+@pytest.mark.gpu
+def test_mace_train_step_on_card():
+    """Three launcher steps of MACE's smoke config on the card: the kernel
+    route (B9, 23 launches a step: 2 layers x 11 coupling paths + the graph
+    readout) against the plain route (B9's plain version) from the same
+    parameters, every loss within rel 1e-4 (B9's fp32 summation order
+    only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.configs.inputs import make_smoke_batch
+    from repro_torch.kernels import segment_sum_sorted as ss
+    from repro_torch.launch.train import wire_gnn
+
+    cfg, raw = make_smoke_batch("mace", "gnn_train", np.random.default_rng(0))
+
+    def run():
+        params, optim, step, data_fn = wire_gnn("mace", cfg, raw, 0, "cuda")
+        state = optim.init(params)
+        losses = []
+        for s in range(3):
+            params, state, m = step(params, state, data_fn(s))
+            losses.append(float(m["loss"]))
+        return losses
+
+    ss.reset_launches()
+    kernel = run()
+    assert ss.launches() == 3 * 23
+    real = ops.segment_sum_sorted
+    ops.segment_sum_sorted = ss.segment_sum_sorted_ref
+    try:
+        plain = run()
+    finally:
+        ops.segment_sum_sorted = real
+    assert ss.launches() == 3 * 23
+    assert all(np.isfinite(kernel))
+    np.testing.assert_allclose(kernel, plain, rtol=1e-4, atol=0)
+
+
 def _hub_problem(p, n_rounds, cache_rows, seed):
     """Five hubs adjacent to every live vertex (hub x hub pairs), random
     edges, 4 isolated vertices; the compiled problem of ``p`` ranks."""

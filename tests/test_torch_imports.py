@@ -81,7 +81,9 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.configs.gat_cora", "repro_torch.configs.pna",
     "repro_torch.models.gnn", "repro_torch.models.gnn.common",
     "repro_torch.models.gnn.gin", "repro_torch.models.gnn.gat",
-    "repro_torch.models.gnn.pna", "repro_torch.train.optimizer",
+    "repro_torch.models.gnn.pna", "repro_torch.models.gnn.so3",
+    "repro_torch.models.gnn.mace", "repro_torch.configs.mace",
+    "repro_torch.obs.validate", "repro_torch.train.optimizer",
     "repro_torch.train.checkpoint", "repro_torch.distributed",
     "repro_torch.distributed.fault_tolerance", "repro_torch.launch.train",
     "repro_torch.distributed.spmd_runtime", "repro_torch.kernels.spmd_plane",

@@ -667,16 +667,9 @@ def test_registry_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["mace", "pna", "gin-tu", "gat-cora"])
 def test_registry_gnn_ids_raise(arch):
-    """MACE is not ported (``NotImplementedError``); the other GNN ids
-    resolve to family ``gnn``, which has no serving path (the reference's
-    ``SystemExit``)."""
+    """Every GNN id resolves to family ``gnn``, which has no serving path
+    (the reference's ``SystemExit``)."""
     assert arch in ref_registry.ARCHS
-    if arch == "mace":
-        with pytest.raises(NotImplementedError, match="not ported yet: gnn"):
-            registry.get_arch(arch)
-        with pytest.raises(NotImplementedError, match="not ported yet: gnn"):
-            serve.main(["--arch", arch, "--device", "cpu"])
-        return
     assert registry.get_arch(arch).family == "gnn"
     with pytest.raises(SystemExit, match=f"{arch}: no serving path for gnn"):
         serve.main(["--arch", arch, "--device", "cpu"])
@@ -685,6 +678,5 @@ def test_registry_gnn_ids_raise(arch):
 def test_registry_unknown_id_and_coverage():
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_arch("no-such-arch")
-    # every id of the reference is either ported or known as not ported
-    assert sorted(registry.ARCHS) == sorted(
-        a for a in ref_registry.ARCHS if a not in registry.NOT_PORTED)
+    # every id of the reference is ported, in the reference's order
+    assert list(registry.ARCHS) == list(ref_registry.ARCHS)

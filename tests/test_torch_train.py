@@ -1,7 +1,8 @@
 """The port's GNN training path held against the reference on the same
 seeded numpy inputs and the reference's own initialised parameters: kernel
 B9 (segment sum) through its plain torch version and its autograd
-Function, the GIN / GAT / PNA models, AdamW, the train step, checkpoints,
+Function, the GIN / GAT / PNA models (MACE's own checks are in
+``tests/test_torch_mace.py``; it joins the train steps here), AdamW, the train step, checkpoints,
 the runner, the launcher and the GNN entries of the registry.
 
 On the CPU the port's wrappers take the kernels' plain versions; the
@@ -33,6 +34,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.models.gnn import gat as ref_gat
 from repro.models.gnn import gin as ref_gin
+from repro.models.gnn import mace as ref_mace
 from repro.models.gnn import pna as ref_pna
 from repro.train import checkpoint as ref_ckpt
 from repro.train import optimizer as ref_opt
@@ -46,7 +48,7 @@ from repro_torch.distributed.fault_tolerance import (
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import segment_sum_sorted as ss
 from repro_torch.launch import train
-from repro_torch.models.gnn import common, gat, gin, pna
+from repro_torch.models.gnn import common, gat, gin, mace, pna
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_loop as tl
 from repro_torch.train.checkpoint import (
@@ -64,7 +66,7 @@ STEP_LOSS_RTOL = 1e-5
 STEP_PARAM_ATOL = 1e-4
 
 ARCHS = {"gin-tu": (gin, ref_gin), "gat-cora": (gat, ref_gat),
-         "pna": (pna, ref_pna)}
+         "pna": (pna, ref_pna), "mace": (mace, ref_mace)}
 
 
 def t(a):
@@ -292,8 +294,9 @@ def test_model_logits_and_gradients_match_reference(arch, sort):
 
 def test_b9_launch_counts_per_step_on_the_cpu_path():
     """The launches per step reckoned from the code (gin smoke 4, gat 4,
-    pna 11) are the calls of the wrapper: counted here through the plain
-    route, where the kernel's counter stays 0."""
+    pna 11, mace 23: 2 layers x 11 coupling paths + the graph readout) are
+    the calls of the wrapper: counted here through the plain route, where
+    the kernel's counter stays 0."""
     calls = {}
     real = ops.segment_sum_sorted
 
@@ -303,7 +306,8 @@ def test_b9_launch_counts_per_step_on_the_cpu_path():
 
     ops.segment_sum_sorted = counting
     try:
-        for arch, want in (("gin-tu", 4), ("gat-cora", 4), ("pna", 11)):
+        for arch, want in (("gin-tu", 4), ("gat-cora", 4), ("pna", 11),
+                           ("mace", 23)):
             mod, _ = ARCHS[arch]
             cfg, _, batch, tree = _case(arch)
             params = mod.params_from_reference(cfg, tree)
@@ -395,7 +399,7 @@ def test_state_from_reference_copies_moments_and_count():
     assert ps.mu["w"].shape == (2, 3) and ps.nu["w"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["gin-tu", "gat-cora", "pna"])
+@pytest.mark.parametrize("arch", ["gin-tu", "gat-cora", "pna", "mace"])
 def test_train_steps_match_reference(arch):
     """Five steps of the launcher's step (``adamw(lr=1e-3,
     weight_decay=0.0)``) from the reference's copied parameters and
@@ -587,11 +591,11 @@ def test_straggler_monitor_matches_reference():
 # --------------------------------------------------------------------------
 # the launcher
 # --------------------------------------------------------------------------
-LINE = re.compile(r"^\[(gin-tu|gat-cora|pna)\] loss -?[\d.]+ -> -?[\d.]+ "
+LINE = re.compile(r"^\[(gin-tu|gat-cora|pna|mace)\] loss -?[\d.]+ -> -?[\d.]+ "
                   r"over 4 steps \(\d+ ms/step\)$")
 
 
-@pytest.mark.parametrize("arch", ["gin-tu", "gat-cora", "pna"])
+@pytest.mark.parametrize("arch", ["gin-tu", "gat-cora", "pna", "mace"])
 def test_train_main_on_the_cpu(arch, capsys):
     result = {}
     assert train.main(["--arch", arch, "--steps", "4", "--device", "cpu"],
@@ -603,11 +607,14 @@ def test_train_main_on_the_cpu(arch, capsys):
     assert int(result["opt_state"].count) == 4
 
 
-def test_train_main_resumes_from_a_checkpoint(tmp_path, capsys):
-    argv = ["--arch", "gin-tu", "--device", "cpu", "--ckpt-dir",
+@pytest.mark.parametrize("arch", ["gin-tu", "mace"])
+def test_train_main_resumes_from_a_checkpoint(arch, tmp_path, capsys):
+    """Six steps straight equal four, a checkpoint and two resumed, bit for
+    bit; MACE's parameters hold nested ``str(l)`` keys."""
+    argv = ["--arch", arch, "--device", "cpu", "--ckpt-dir",
             str(tmp_path), "--ckpt-every", "2"]
     straight = {}
-    train.main(["--arch", "gin-tu", "--steps", "6", "--device", "cpu"],
+    train.main(["--arch", arch, "--steps", "6", "--device", "cpu"],
                result=straight)
     train.main(argv + ["--steps", "4"])
     resumed = {}
@@ -652,8 +659,9 @@ def test_train_main_raises_without_a_card_and_for_unported_families():
     for arch in ("stablelm-1.6b", "din"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(["--arch", arch, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet: gnn"):
-        train.main(["--arch", "mace", "--device", "cpu"])
+    assert registry.get_arch("mace").family == "gnn"  # ported: it trains
+    assert train.main(["--arch", "mace", "--steps", "1", "--device",
+                       "cpu"]) == 0
     with pytest.raises(ValueError, match="no train step"):
         train.main(["--arch", "paper-lcc", "--device", "cpu"])
 
@@ -661,7 +669,7 @@ def test_train_main_raises_without_a_card_and_for_unported_families():
 # --------------------------------------------------------------------------
 # registry, configs and input shapes
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["gin-tu", "gat-cora", "pna"])
+@pytest.mark.parametrize("arch", ["gin-tu", "gat-cora", "pna", "mace"])
 def test_gnn_registry_configs_and_cell_shapes_equal_the_reference(arch):
     want, got = ref_registry.get_arch(arch), registry.get_arch(arch)
     assert (got.family, got.skip_shapes) == (want.family, want.skip_shapes)
@@ -686,7 +694,9 @@ def test_gnn_registry_configs_and_cell_shapes_equal_the_reference(arch):
         assert inputs.step_kind(got, shape) == ref_inputs.step_kind(
             want, shape)
         cfg, _, spec = inputs.input_specs(arch, sid)
-        assert dataclasses.asdict(cfg)["d_in"] == a["d_in"]
+        b = dataclasses.asdict(cfg)
+        b.pop("dtype")
+        assert b == a, sid
         assert all(x.device.type == "meta" for x in spec.values())
         assert {k: tuple(x.shape) for k, x in spec.items()} == {
             k: s for k, (s, _) in rw.items()}
@@ -694,6 +704,7 @@ def test_gnn_registry_configs_and_cell_shapes_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch,kind", [
     ("gin-tu", "gnn_train"), ("gat-cora", "gnn_train"), ("pna", "gnn_train"),
+    ("mace", "gnn_train"),
     ("stablelm-1.6b", "lm_train"), ("stablelm-1.6b", "lm_decode"),
     ("din", "recsys_serve"), ("din", "retrieval"),
 ])
