@@ -24,8 +24,9 @@ JSON object on a line of its own:
   checks   kernel vs plain version at the listed shapes: B9
            (``segment_sum_sorted``: the reference's test shapes, D in {1, 3,
            64, 100, 128}, E in {0, 1, 777}, a padding tail of id N,
-           negative, unsorted and int64 ids, one segment over 10^6 edges,
-           Zipf segment sizes); B8
+           negative, unsorted and int64 ids, MACE's and gat-cora's
+           aggregations, the geometry's switches just below and above, one
+           segment over 10^6 edges, Zipf segment sizes); B8
            (``flash_attention``, both kernels: causal, window 0/64/4,096,
            softcap 0/50, non-causal, G 1/2, dh 64/128, S that no tile
            divides, in fp32 (the FMA kernel) and in bf16 (the wgmma
@@ -180,11 +181,16 @@ JSON object on a line of its own:
            four serve_bulk batches in turn and with serve_bulk's ids
            redrawn below 256 and over the whole table
            (``F.embedding_bag`` at each),
-           B9 at ogb_products' aggregations, [61,859,140 x 64] and x 100
-           over 2,449,029 sorted segments (``zeros + index_add_``), held
-           element by element against the plain output at both widths, and
-           at MACE's widest, [8,192 x 640] over 3,840 segments (also on
-           the device alone, in a CUDA graph)
+           B9 (``time_segment_sum``) at ogb_products' aggregations
+           ([61,859,140 x 64] and x 100 into 2,449,029; the row's headline,
+           from Python), MACE's ([8,192 x 640], x 384, x 128 into 3,840
+           segments, the readout [3,840] into 128) and gat-cora's ([10,556 x
+           8 x 8], [10,556 x 8] into 2,708) — these from Python and on the
+           device alone, in a CUDA graph, in five rounds — beside ``zeros +
+           index_add_``, each held element by element against the plain
+           output, and in turns with the parent's B9 (its wrapper and
+           kernel) when its ``segment_sum_sorted.py`` and ``.cu`` are in
+           ``build/parent/``
 
 then the ``nvidia-smi`` line, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``. The launch counts in the summary are read
@@ -222,8 +228,9 @@ LIBRARIES = ("intersect_count", "epoch_count", "resident_intersect",
 # a parent checkout's kernel sources, copied here to be timed beside this
 # checkout's kernels on the same inputs in one call (absent in a plain run):
 # its spmd_plane.cu and epoch_count.cu with the pair_intersect.cuh they
-# include. A source is taken only when its C interface is the one called
-# here (``parent_abi_errors``); any other is refused.
+# include, its segment_sum_sorted.cu. A source is taken only when its C
+# interface is the one called here (``parent_abi_errors``); any other is
+# refused.
 PARENT_DIR = os.path.join("build", "parent")
 PARENT = {}  # name -> the parent's loaded library
 # the C interface ``parent_pair_counts`` calls: the pair-count kernel of a
@@ -233,6 +240,12 @@ PARENT_PAIR_PARAMS = (
     "const void* b_idx, const void* a_len, const void* b_len, "
     "const void* mask, void* out, int p, int h, int f_pad, int w, "
     "long long e_tot, void* stream")
+# the C interface that the parent's B9 wrapper (``parent_segment_sum``)
+# calls: B9 of commit a09601e, a thread a run of ``ept`` edges and a chunk
+# of ``vec`` floats, int32 ids
+PARENT_SEGSUM_PARAMS = (
+    "const void* values, const void* seg, void* out, long long e, int d, "
+    "long long n, int vec, int ept, void* stream")
 STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
@@ -335,6 +348,10 @@ TRAIN_LAUNCHER_STEPS = 20
 TRAIN_CELLS = (("gin-tu", "ogb_products"), ("gat-cora", "full_graph_sm"),
                ("mace", "molecule"))
 TRAIN_STEPS = 6
+# cells whose step is also timed with the parent's B9 in turns (when its
+# wrapper and source are in build/parent/): B9 runs 23 times a MACE step
+B9_TURN_CELLS = (("mace", "molecule"),)
+B9_TURN_STEPS = 21  # a run of those turns: 1 warm-up + 20 timed steps
 # B9 launches per step reckoned from the code: one per aggregation, plus
 # the graph readout (gin smoke, mace), the softmax denominator (gat), two
 # per segment_mean and one for the degrees (pna), one per coupling path
@@ -369,12 +386,15 @@ def parent_abi_errors(name, src, build):
     """Why the parent's ``name``.cu cannot be called here (empty if it
     can): its ``epoch_count`` entry points must be declared as this
     checkout's (the swap runs this checkout's wrapper on them), its
-    ``spmd_pair_counts_launch`` as ``PARENT_PAIR_PARAMS``."""
+    ``spmd_pair_counts_launch`` as ``PARENT_PAIR_PARAMS``, its
+    ``segment_sum_sorted_launch`` as ``PARENT_SEGSUM_PARAMS``."""
     if name == "epoch_count":
         own = str(build.CSRC / "epoch_count.cu")
         want = {fn: c_params(own, fn) for fn in (
             "epoch_count_launch", "epoch_land_launch",
             "epoch_count_stage_cap")}
+    elif name == "segment_sum_sorted":
+        want = {"segment_sum_sorted_launch": PARENT_SEGSUM_PARAMS}
     else:
         want = {"spmd_pair_counts_launch": PARENT_PAIR_PARAMS}
     return [f"{fn}({c_params(src, fn)}) is not {fn}({params})"
@@ -387,7 +407,7 @@ def start_parent_builds(root, build):
     source whose C interface is not the one called here raises."""
     d = os.path.join(root, PARENT_DIR)
     started = []
-    for name in ("epoch_count", "spmd_plane"):
+    for name in ("epoch_count", "spmd_plane", "segment_sum_sorted"):
         src = os.path.join(d, f"{name}.cu")
         if os.path.exists(src):
             errors = parent_abi_errors(name, src, build)
@@ -1458,14 +1478,43 @@ def time_flash(np, torch):
     return out
 
 
+def segsum_ids(kind, e, n, rng, np):
+    """Segment ids for B9's checks: ``sorted`` (uniform), ``mace`` (each
+    graph's 64 edges among its 30 nodes, sorted, as mace x molecule draws
+    them), ``readout`` (30 nodes a graph), ``padded`` (a tail of id N),
+    ``negative``, ``unsorted``, ``int64``, ``one_segment`` and ``zipf``
+    (segment sizes ~ Zipf(1.5), sorted)."""
+    if kind == "one_segment":
+        seg = np.ones(e, np.int64)
+    elif kind == "zipf":
+        seg = np.sort((rng.zipf(1.5, e) - 1) % n)
+    elif kind == "mace":
+        seg = np.sort(np.arange(e) // 64 * 30 + rng.integers(0, 30, e))
+    elif kind == "readout":
+        seg = np.arange(e) // 30
+    else:
+        seg = np.sort(rng.integers(0, n, e))
+    if kind == "padded":
+        seg[-e // 4:] = n
+    elif kind == "negative":
+        seg[: e // 3] = -1 - rng.integers(0, 3, e // 3)
+    elif kind == "unsorted":
+        seg = rng.permutation(seg)
+    return seg.astype(np.int64 if kind == "int64" else np.int32)
+
+
 def check_segment_sum(dev, rng, np, torch):
     """B9 vs its plain version, element by element at SEGSUM_TOL: the
     reference's test shapes, D in {1, 3, 64, 100, 128} (every load width),
     E in {0, 1, 777}, a padding tail of id N, negative and unsorted ids,
-    int64 ids; one segment over 10^6 edges and Zipf segment sizes with
-    values on a 2^-10 grid (their sums are exact in fp32 in any order, so
-    the plain version's own atomics cannot blur the check). Returns (cases,
-    max_abs_err, launches)."""
+    int64 ids; the GNN paths' shapes (MACE's l = 2, 1, 0 paths and
+    readout, gat-cora's messages and denominator); the geometry's switches
+    just below and above (one lane group a warp at D = 68 against two at
+    64, one row piece at D = 128 against two at 132, steps just under and
+    over MAX_STEPS); one segment over 10^6 edges and Zipf segment sizes
+    with values on a 2^-10 grid (their sums are exact in fp32 in any
+    order, so the plain version's own atomics cannot blur the check).
+    Returns (cases, max_abs_err, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_sum_sorted as ss
 
@@ -1475,24 +1524,22 @@ def check_segment_sum(dev, rng, np, torch):
             plan.append((e, d, 300, "sorted"))
     plan += [(777, 64, 50, "padded"), (777, 100, 50, "negative"),
              (777, 3, 50, "unsorted"), (777, 64, 50, "int64"),
+             (8_192, 640, 3_840, "mace"), (8_192, 384, 3_840, "mace"),
+             (8_192, 128, 3_840, "mace"), (3_840, 1, 128, "readout"),
+             (10_556, 64, 2_708, "sorted"), (10_556, 8, 2_708, "sorted"),
+             (8_192, 640, 3_840, "unsorted"), (8_192, 8, 2_708, "negative"),
+             (8_192, 64, 3_840, "sorted"), (8_192, 68, 3_840, "sorted"),
+             (8_192, 128, 3_840, "padded"), (8_192, 132, 3_840, "sorted")]
+    cap = ss.MAX_STEPS * 132 * ss.FILL_WARPS_PER_SM  # steps reach the cap
+    plan += [(cap - 4_224, 128, cap // 8, "sorted"),
+             (cap + 1, 128, cap // 8, "sorted"),
              (1_000_000, 64, 3, "one_segment"),
              (2_000_000, 64, 100_000, "zipf")]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     cases, worst = [], 0.0
     ss.reset_launches()
     for e, d, n, kind in plan:
-        if kind == "one_segment":
-            seg = np.ones(e, np.int64)
-        elif kind == "zipf":  # segment sizes ~ Zipf(1.5), sorted ids
-            seg = np.sort((rng.zipf(1.5, e) - 1) % n)
-        else:
-            seg = np.sort(rng.integers(0, n, e))
-        if kind == "padded":
-            seg[-e // 4:] = n
-        elif kind == "negative":
-            seg[: e // 3] = -1 - rng.integers(0, 3, e // 3)
-        elif kind == "unsorted":
-            seg = rng.permutation(seg)
-        seg = seg.astype(np.int64 if kind == "int64" else np.int32)
+        seg = segsum_ids(kind, e, n, rng, np)
         vals = rng.standard_normal((e, d), dtype=np.float32)
         if kind in ("one_segment", "zipf"):
             vals = np.round(vals * 1024) / 1024
@@ -1508,8 +1555,10 @@ def check_segment_sum(dev, rng, np, torch):
         over = (float((diff / (SEGSUM_TOL * (1 + want.abs()))).max())
                 if diff.numel() else 0.0)
         worst = max(worst, err)
+        geo = ss.geometry(e, d, n, n_sm, v.data_ptr())
         cases.append({"E": e, "D": d, "N": n, "ids": kind, "err": err,
                       "err_over_limit": over,
+                      "geometry": dataclasses.asdict(geo),
                       "largest_segment": int(np.bincount(
                           seg[(seg >= 0) & (seg < n)].astype(np.int64),
                           minlength=1).max()) if e else 0})
@@ -1639,7 +1688,9 @@ def train_cell(arch_id, shape_id, dev, np, torch):
     launcher's optimizer and step), ``TrainRunner`` for TRAIN_STEPS steps
     (the first a warm-up); then one profiled step (and, for MACE, the
     energies' rotation invariance, ``energy_rotation``); then the same
-    steps on the plain route from the same start. Returns (record, B9
+    steps on the plain route from the same start; for ``B9_TURN_CELLS``,
+    with the parent's B9 in ``build/parent/``, the kernel route's steps
+    again with this B9 and with the parent's, in turns. Returns (record, B9
     launches of the kernel route's steps)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1657,7 +1708,7 @@ def train_cell(arch_id, shape_id, dev, np, torch):
     gen_s = time.perf_counter() - t0
     wire_s = {}
 
-    def run(route):
+    def run(route, steps=TRAIN_STEPS):
         t0 = time.perf_counter()
         params, optim, step, data_fn = wire_gnn(arch_id, cfg, raw, 0, dev)
         torch.cuda.synchronize()
@@ -1679,19 +1730,19 @@ def train_cell(arch_id, shape_id, dev, np, torch):
         torch.cuda.reset_peak_memory_stats()
         ss.reset_launches()
         params, opt_state, log = runner.run(
-            params, optim.init(params), start_step=0, n_steps=TRAIN_STEPS)
+            params, optim.init(params), start_step=0, n_steps=steps)
         torch.cuda.synchronize()
         launches = ss.launches()
         timed = [m["dt"] * 1e3 for m in log[1:]]
         med = statistics.median(timed)
         losses = [m["loss"] for m in log]
-        if calls[0] != TRAIN_STEPS:
+        if calls[0] != steps:
             raise RuntimeError(f"{arch_id} {route}: step_fn called "
-                               f"{calls[0]} times for {TRAIN_STEPS} steps "
+                               f"{calls[0]} times for {steps} steps "
                                "(a retry hid a fault)")
         if not all(np.isfinite(losses)):
             raise RuntimeError(f"{arch_id} {route}: loss {losses}")
-        rec = {"route": route, "steps": TRAIN_STEPS,
+        rec = {"route": route, "steps": steps,
                "step_fn_calls": calls[0], "losses": losses,
                "first_step_ms": log[0]["dt"] * 1e3,
                "ms_per_step_median": med, "ms_per_step": timed,
@@ -1753,6 +1804,21 @@ def train_cell(arch_id, shape_id, dev, np, torch):
     if not max(rel) <= TRAIN_LOSS_RTOL:
         raise RuntimeError(f"{arch_id} x {shape_id}: kernel route != plain "
                            f"route {rel}")
+    parent = parent_segment_sum()
+    if parent is not None and (arch_id, shape_id) in B9_TURN_CELLS:
+        # the step with this B9 and with the parent's (its wrapper and
+        # kernel) in turns, twice: this, parent, parent, this
+        turns = {"this": [], "parent": []}
+        for who in ("this", "parent", "parent", "this") * 2:
+            ops.segment_sum_sorted = parent if who == "parent" else real
+            try:
+                r, t_params, t_state, _, _ = run(f"{who}_in_turns",
+                                                 B9_TURN_STEPS)
+            finally:
+                ops.segment_sum_sorted = real
+            turns[who].append(r["ms_per_step_median"])
+            del t_params, t_state
+        rec["b9_in_turns_ms_per_step"] = turns
     del raw
     gc.collect()
     torch.cuda.empty_cache()
@@ -1855,100 +1921,154 @@ def phase_validate(torch):
             "seconds": time.perf_counter() - t0}
 
 
+# B9's timed shapes: (name, values shape, N, ids). gin-tu at ogb_products
+# (layers 2-5 and layer 1; B9's headline row, timed from Python), MACE at
+# mace x molecule (128 graphs x 30 nodes x 64 edges; the l = 2, 1, 0
+# coupling paths' 5, 3, 1 x 128 channels, then the energy readout into 128
+# graphs), gat-cora at full_graph_sm (8 heads x 8 channels; the softmax
+# denominator a float a head)
+SEGSUM_SHAPES = (
+    ("D64", (61_859_140, 64), 2_449_029, "sorted"),
+    ("D100", (61_859_140, 100), 2_449_029, "sorted"),
+    ("mace_D640", (8_192, 640), 3_840, "mace"),
+    ("mace_D384", (8_192, 384), 3_840, "mace"),
+    ("mace_D128", (8_192, 128), 3_840, "mace"),
+    ("mace_readout", (3_840,), 128, "readout"),
+    ("gat_msg", (10_556, 8, 8), 2_708, "sorted"),
+    ("gat_denom", (10_556, 8), 2_708, "sorted"),
+)
+SEGSUM_ROUNDS = 5  # rounds of turns below 10^6 edges (one at ogb_products)
+
+
+def parent_segment_sum():
+    """The parent checkout's B9 wrapper (``build/parent/
+    segment_sum_sorted.py``, of the same commit as its ``.cu``) on the
+    parent's library, or None without both: its module loaded beside this
+    checkout's, its ``_build.load`` answering with ``PARENT``'s library, so
+    a call runs the parent's Python as well as its kernel."""
+    import importlib.util
+    import types
+
+    src = os.path.join(PARENT_DIR, "segment_sum_sorted.py")
+    lib = PARENT.get("segment_sum_sorted")
+    if lib is None or not os.path.exists(src):
+        return None
+    spec = importlib.util.spec_from_file_location(
+        "repro_torch.kernels._parent_segment_sum_sorted", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._build = types.SimpleNamespace(load=lambda name: lib)
+    return mod.segment_sum_sorted
+
+
 def time_segment_sum(dev, np, torch):
-    """B9 at gin-tu x ogb_products' aggregation shapes: [61,859,140 x 64]
-    (layers 2-5) and [61,859,140 x 100] (layer 1), ids sorted over
-    2,449,029 segments: kernel, plain version (D = 64), bound (values and
-    ids read once, out written once) and ``zeros(N, D).index_add_`` as the
-    library call. Each timed call includes its output's zeroing. At both
-    widths the kernel's output is held element by element at SEGSUM_TOL
-    against the plain one: at D = 64 the plain version's, at D = 100 the
-    library call's (every id is in range, so it is the same function, and
-    no masked copy of the 24.7 GB values is needed). Then MACE's widest
-    aggregation at mace x molecule (``mace_D640``): [8,192 x 640] (an l = 2
-    message, 5 x 128 channels) over 3,840 segments, each graph's 64 edges
-    among its 30 nodes, sorted: also timed on the device alone (20 calls
-    in a CUDA graph), as is ``zeros + index_add_``, and held against the
-    plain version."""
-    from repro_torch.configs.registry import get_arch
+    """B9 at every shape of ``SEGSUM_SHAPES``: the kernel from Python
+    (``ms``: ``min_ms``, calls issued back to back, so below 10^6 edges it
+    reads the host's launch path) and, below 10^6 edges, on the device alone
+    (``device_ms``: 20 calls in a CUDA graph, warm: MACE's 31 MB stay in the
+    50 MB L2); ``zeros + index_add_`` as the library call, and with the
+    parent's wrapper and source in ``build/parent/`` the parent's B9 through
+    its own wrapper, each timed the same ways. The three are timed in turns
+    (this, library, parent, parent, library, this: a round's value is the
+    lower of each's two), ``SEGSUM_ROUNDS`` rounds below 10^6 edges and one
+    at ogb_products; every round's values are kept (``rounds``) with this
+    kernel's ratio to the library call's in each round, and the keys above
+    are the least over the rounds. Also the plain version (not at
+    ogb_products' D = 100, whose masked copy of the 24.7 GB values would not
+    fit beside them) and the bound (values and ids read once, out written
+    once). Each timed call includes its output's zeroing. The kernel's
+    output (and the parent's) is held element by element at SEGSUM_TOL
+    against the plain one, or at D = 100 the library call's (every id is in
+    range there, so it is the same function)."""
     from repro_torch.launch.bag_timing import graph_ms
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_sum_sorted as ss
 
-    shape = get_arch("gin-tu").shapes["ogb_products"]
-    n, e = shape.n_nodes, shape.n_edges
+    rng = np.random.default_rng(11)
     gen = torch.Generator(dev).manual_seed(1)
-    seg = torch.sort(torch.randint(0, n, (e,), generator=gen, device=dev,
-                                   dtype=torch.int32)).values
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    parent = parent_segment_sum()
     out = {}
-    for d in (64, 100):
-        vals = torch.randn((e, d), generator=gen, device=dev)
-        ms = min_ms(lambda: ops.segment_sum_sorted(vals, seg,
-                                                   num_segments=n), reps=5)
-        lib = min_ms(lambda: torch.zeros((n, d), device=dev).index_add_(
-            0, seg, vals), reps=5)
+    for name, shape, n, kind in SEGSUM_SHAPES:
+        e = shape[0]
+        small = e < 1_000_000
+        if small:
+            seg = torch.from_numpy(segsum_ids(kind, e, n, rng, np)).to(dev)
+        else:  # drawn on the card: 61.9M ids
+            seg = torch.sort(torch.randint(0, n, (e,), generator=gen,
+                                           device=dev,
+                                           dtype=torch.int32)).values
+        vals = torch.randn(shape, generator=gen, device=dev)
+        d = vals[0].numel()
+
+        def kernel():
+            return ops.segment_sum_sorted(vals, seg, num_segments=n)
+
+        def library():
+            return torch.zeros((n,) + shape[1:], device=dev).index_add_(
+                0, seg, vals)
+
         nbytes = e * d * 4.0 + e * 4.0 + n * d * 4.0
         bnd, by = bound_ms(nbytes, e * d * 1.0)
-        row = {"shape": {"values": [e, d], "segments": n}, "ms": ms,
-               "library_ms": lib, "bytes": nbytes, "bound_ms": bnd,
-               "bound_by": by}
-        if d == 64:
-            row["plain_ms"] = cuda_ms(
+        geo = ss.geometry(e, d, n, n_sm, vals.data_ptr())
+        row = {"shape": {"values": list(shape), "segments": n, "ids": kind},
+               "geometry": dataclasses.asdict(geo),
+               "warps_per_sm": geo.warps / n_sm,
+               "bytes": nbytes, "bound_ms": bnd, "bound_by": by}
+        if name != "D100":
+            row["plain_ms"] = (min_ms(lambda: ss.segment_sum_sorted_ref(
+                vals, seg, num_segments=n)) if small else cuda_ms(
                 lambda: ss.segment_sum_sorted_ref(vals, seg, num_segments=n),
-                reps=1)
+                reps=1))
             want = ss.segment_sum_sorted_ref(vals, seg, num_segments=n)
             row["err_against"] = "segment_sum_sorted_ref"
         else:
-            want = torch.zeros((n, d), device=dev).index_add_(0, seg, vals)
+            want = library()
             row["err_against"] = "zeros + index_add_"
-        got = ops.segment_sum_sorted(vals, seg, num_segments=n)
-        diff = (got - want).abs()
-        row["err"] = float(diff.max())
-        row["err_over_limit"] = float(
-            (diff / (SEGSUM_TOL * (1 + want.abs()))).max())
-        if not row["err_over_limit"] <= 1.0:
-            raise RuntimeError(f"timing: B9 kernel != plain at D = {d} "
-                               f"({row['err_over_limit']})")
-        del got, want, diff
-        out[f"D{d}"] = row
-        del vals
+        want = want.reshape(n, d)
+        fns = {"this": kernel, "library": library}
+        if parent is not None:
+            fns["parent"] = lambda: parent(vals, seg, num_segments=n)
+        for who, fn in fns.items():
+            if who == "library":
+                continue
+            diff = (fn().reshape(n, d) - want).abs()
+            over = float((diff / (SEGSUM_TOL * (1 + want.abs()))).max())
+            if who == "this":
+                row["err"], row["err_over_limit"] = float(diff.max()), over
+            else:
+                row["parent_err_over_limit"] = over
+            if not over <= 1.0:
+                raise RuntimeError(f"timing: B9 ({who}) != plain at {name} "
+                                   f"({over})")
+            del diff
+        clocks = {"python": lambda f: min_ms(f, reps=20 if small else 5)}
+        if small:
+            clocks["device"] = lambda f: graph_ms(f, 20)
+        rounds = {clock: {who: [] for who in fns} for clock in clocks}
+        for _ in range(SEGSUM_ROUNDS if small else 1):
+            for clock, timer in clocks.items():
+                turn = {who: [] for who in fns}
+                for who in [*fns, *reversed(fns)]:
+                    turn[who].append(timer(fns[who]))
+                for who, times in turn.items():
+                    rounds[clock][who].append(min(times))
+        for clock, by_who in rounds.items():
+            pre = "" if clock == "python" else "device_"
+            for who, times in by_who.items():
+                key = {"this": "", "library": "library_",
+                       "parent": "parent_"}[who]
+                row[f"{key}{pre}ms"] = min(times)
+            by_who["this_over_library"] = [
+                t / lib for t, lib in zip(by_who["this"], by_who["library"])]
+            if parent is not None:
+                by_who["this_over_parent"] = [
+                    t / p for t, p in zip(by_who["this"], by_who["parent"])]
+        row["rounds"] = rounds
+        row["share_of_bound"] = bnd / row["device_ms" if small else "ms"]
+        out[name] = row
+        del vals, seg, want
         torch.cuda.empty_cache()
-    mol = get_arch("mace").shapes["molecule"]
-    n = mol.batch_graphs * mol.nodes_per_graph
-    e = mol.batch_graphs * mol.edges_per_graph
-    d = 5 * get_arch("mace").config().channels
-    first = (torch.arange(e, device=dev, dtype=torch.int32)
-             // mol.edges_per_graph) * mol.nodes_per_graph
-    seg = torch.sort(first + torch.randint(
-        0, mol.nodes_per_graph, (e,), generator=gen, device=dev,
-        dtype=torch.int32)).values
-    vals = torch.randn((e, d), generator=gen, device=dev)
-
-    def kernel():
-        return ops.segment_sum_sorted(vals, seg, num_segments=n)
-
-    def library():
-        return torch.zeros((n, d), device=dev).index_add_(0, seg, vals)
-
-    nbytes = e * d * 4.0 + e * 4.0 + n * d * 4.0
-    bnd, by = bound_ms(nbytes, e * d * 1.0)
-    row = {"shape": {"values": [e, d], "segments": n},
-           "ms": min_ms(kernel), "device_ms": graph_ms(kernel, 20),
-           "plain_ms": min_ms(lambda: ss.segment_sum_sorted_ref(
-               vals, seg, num_segments=n)),
-           "library_ms": min_ms(library),
-           "library_device_ms": graph_ms(library, 20),
-           "bytes": nbytes, "bound_ms": bnd, "bound_by": by,
-           "err_against": "segment_sum_sorted_ref"}
-    want = ss.segment_sum_sorted_ref(vals, seg, num_segments=n)
-    diff = (kernel() - want).abs()
-    row["err"] = float(diff.max())
-    row["err_over_limit"] = float(
-        (diff / (SEGSUM_TOL * (1 + want.abs()))).max())
-    if not row["err_over_limit"] <= 1.0:
-        raise RuntimeError(f"timing: B9 kernel != plain at MACE's "
-                           f"[{e} x {d}] ({row['err_over_limit']})")
-    out["mace_D640"] = row
     return out
 
 
@@ -3112,8 +3232,16 @@ def main() -> int:
              for ln in sass.splitlines() if "HGMMA" in ln]
     if not hgmma:
         raise RuntimeError("flash_attention_wgmma: no HGMMA in its SASS")
+    # B9's flushes: its reduction instructions (a float4 flush is one
+    # REDG.E.ADD.F32x4 on sm_90)
+    b9_sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         infos["segment_sum_sorted"].library],
+        capture_output=True, text=True, check=True, timeout=120).stdout
     emit({"phase": "build", "wall_s": build_wall, "libraries": libraries,
           "parent_libraries": parent_libraries,
+          "segment_sum_sorted_reductions": sorted(set(re.findall(
+              r"\b(?:RED|ATOM)G?\.[\w.]+", b9_sass))),
           "flash_attention_wgmma_sass": {
               "hgmma_instructions": len(hgmma),
               "kinds": sorted({ln.split()[0] + (" tnspB" if "tnspB" in ln
@@ -3846,14 +3974,15 @@ def main() -> int:
         "launches_cells": {f"{c['arch']} x {c['shape']}":
                            c["kernel_route"]["segment_sum_sorted_launches"]
                            for c in train_rec["cells"]},
-        "max_abs_err": max(ss_err, segsum["D64"]["err"],
-                           segsum["D100"]["err"], segsum["mace_D640"]["err"]),
+        "max_abs_err": max(ss_err, *(r["err"] for r in segsum.values())),
         "shape": segsum["D64"]["shape"], "ms": segsum["D64"]["ms"],
         "plain_ms": segsum["D64"]["plain_ms"],
         "bound_ms": segsum["D64"]["bound_ms"],
         "bound_by": segsum["D64"]["bound_by"],
         "library_ms": segsum["D64"]["library_ms"],
-        "layer1_D100": segsum["D100"], "mace_D640": segsum["mace_D640"]},
+        "layer1_D100": segsum["D100"], "mace_D640": segsum["mace_D640"],
+        "shapes": {k: r for k, r in segsum.items()
+                   if k not in ("D64", "D100", "mace_D640")}},
         *spmd_kernel_rows(spmd_rec, spmd_launches, spmd_checks)],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -331,7 +331,11 @@ def test_segment_sum_sorted_kernel_on_card():
     negative and unsorted ids, int64 ids, trailing dims, segments over
     many runs (values on a 2^-10 grid there, so that every order of the
     sum is exact and the plain version's own atomics cannot blur the
-    check); float64 values raise before any launch."""
+    check); the GNN paths' shapes (MACE's l = 2, 1, 0 paths and readout,
+    gat-cora's messages and softmax denominator); the geometry's switches
+    just below and above (two lane groups a warp at D = 64, one at 68; one
+    row piece at D = 128, two at 132); float64 values raise before any
+    launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
     from repro_torch.kernels import segment_sum_sorted as ss
@@ -339,10 +343,21 @@ def test_segment_sum_sorted_kernel_on_card():
     rng = np.random.default_rng(8)
     ss.reset_launches()
     n_calls = 0
+    mace = np.sort(np.arange(8_192) // 64 * 30 + rng.integers(0, 30, 8_192))
     for e, d, n, kind in [(512, 16, 64, "sorted"), (1024, 64, 200, "sorted"),
                           (777, 1, 50, "padded"), (777, 3, 50, "negative"),
                           (777, 100, 50, "unsorted"), (1, 128, 4, "sorted"),
-                          (0, 64, 10, "sorted"), (100_000, 64, 3, "sorted")]:
+                          (0, 64, 10, "sorted"), (100_000, 64, 3, "sorted"),
+                          (8_192, 640, 3_840, "mace"),
+                          (8_192, 384, 3_840, "mace"),
+                          (8_192, 128, 3_840, "mace"),
+                          (3_840, 1, 128, "readout"),
+                          (10_556, 64, 2_708, "sorted"),
+                          (10_556, 8, 2_708, "sorted"),
+                          (8_192, 64, 3_840, "sorted"),
+                          (8_192, 68, 3_840, "sorted"),
+                          (8_192, 128, 3_840, "unsorted"),
+                          (8_192, 132, 3_840, "sorted")]:
         seg = np.sort(rng.integers(0, n, size=e))
         if kind == "padded":
             seg[-e // 4:] = n
@@ -350,8 +365,12 @@ def test_segment_sum_sorted_kernel_on_card():
             seg[: e // 3] = -1
         elif kind == "unsorted":
             seg = rng.permutation(seg)
+        elif kind == "mace":  # each graph's 64 edges among its 30 nodes
+            seg = mace
+        elif kind == "readout":  # 30 nodes a graph
+            seg = np.arange(e) // 30
         vals = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32))
-        if e > 1000:
+        if e > 1000 and n < 100:
             vals = torch.round(vals * 1024) / 1024
         for ids in (seg.astype(np.int32), seg.astype(np.int64)):
             v, s = vals.cuda(), torch.from_numpy(ids).cuda()
