@@ -12,11 +12,14 @@ stated tolerances), drives the port's paths — the paper's LCC
 pipeline, the streaming path with the device tier, online graph query
 serving with its traffic plane, the SPMD data plane (the stream and query
 serving with ``--spmd --pipeline``), serving (gemma2-27b prefill + decode,
-DIN scoring) and GNN training (gin-tu at ogb_products' size, MACE at
-molecule's) — through their public entry points, checks the port's own
-observability artifacts with the port's validator, and fails (non-zero
-exit) if any phase fails. Each phase prints one
-JSON object on a line of its own:
+DIN scoring), GNN training (gin-tu at ogb_products' size, MACE at
+molecule's, GAT's hub split at ogb_products' nodes), LM training
+(stablelm-1.6b at its published width, sequence 4,096) and DIN training
+(its published config) — through their public entry points, checks the
+port's own observability artifacts with the port's validator, and fails
+(non-zero exit) if any phase fails. Each phase prints one
+JSON object on a line of its own, with ``phase_wall_s``, the seconds since
+the previous phase's line:
 
   env      versions, device name, ``nvidia-smi`` name and power limit
   build    seconds to build each library, ``-Xptxas -v`` registers / smem,
@@ -64,8 +67,10 @@ JSON object on a line of its own:
            factor 16, 16 batches, p = 8, device tier of 1,024 x 512 slots,
            every 4th batch verified bit-exact against a recount; the largest
            B3 call of each variant is held against the plain version again;
-           then the same run once more under ``torch.profiler`` for the
-           device rows and idle share (updates/s is the unprofiled run's)
+           then the first 4 of the same 16 batches on an engine wired by
+           the launcher's ``build_engine``, under ``torch.profiler``, for
+           the device rows and idle share (updates/s is the unprofiled
+           run's), verified after them
   stream_routes  scale 12, 8 adversarial batches, per-rank tier, hub
            partition + rebalance, maintained schedule, two engines wired by
            ``stream_run.build_engine`` from the launcher's flags, with and
@@ -78,8 +83,9 @@ JSON object on a line of its own:
            against a recount of its snapshot); (b) the same graph with
            ``--ranks 8 --verify`` (512 queries), then open-loop Poisson
            arrivals at half (a)'s in-engine q/s with ``--slo --tenants 3
-           --ewma-scores --verify`` (1,024 queries); (c) scale 16, 256
-           queries, window 64, 4,096 tier slots, driven through the
+           --ewma-scores --verify`` (1,024 queries); (c) scale 16,
+           ``--ranks 8``, 256 queries, window 64, 4,096 tier slots (the
+           loop route phase ``spmd`` compares with), driven through the
            launcher's ``build_service`` and ``closed_loop``, every answer
            checked against the stream engine's ``t`` / ``lcc``, the
            store's rows and a ``lexsort`` of ``lcc``, the widest B1 and B3
@@ -110,8 +116,9 @@ JSON object on a line of its own:
            ``query_serve`` S12 ``--ranks 8 --spmd --pipeline --verify`` (512
            queries), S12 ``--partition hub --ranks 8 --spmd --verify``
            (split-hub fragments shipped; 256 queries), and S16 at (c)'s argv
-           with ``--ranks 8``, 256 queries on the SPMD route and on the loop
-           route, every answer checked as in ``query_serve`` (c), measured
+           with ``--spmd --pipeline``, 256 queries (beside ``query_serve``
+           (c), the loop route at the same argv), every answer checked as
+           in ``query_serve`` (c), measured
            == modeled, q/s, p99, peak memory beyond the service's start,
            the ledger and the ``all_to_all`` spans' ``landed_bytes``
            (equal to their payload unit by unit); (d) the first 4
@@ -151,7 +158,35 @@ JSON object on a line of its own:
            scatters, GEMMs, the rest; idle share), for mace the graph
            energies at positions rotated by a seeded rotation (rel 1e-4 of
            the largest), and the same steps on the
-           plain route (B9's plain version): every loss within rel 1e-4
+           plain route (B9's plain version): every loss within rel 1e-4;
+           then gat-cora's published config at ogb_products' 2,449,029
+           nodes and a tenth of its edges (6,185,914; sources from a power
+           law whose top 65,536 carry ~35% of them), split as the
+           reference's dryrun splits it (65,536 hub rows by out-degree,
+           ``split_hot_cold``; B9 8 times a step) and unsplit (4): each
+           cell as above, and split == unsplit, every loss within rel 1e-4
+  train_lm ``repro_torch.launch.train.main`` on stablelm-1.6b's published
+           config (10 steps); the cell stablelm-1.6b x train_4k at the
+           published width and depth (24 layers, d_model 2,048, bf16, remat
+           on), sequence 4,096, global batch 4 in 2 microbatches
+           (train_4k's 256 cut to fit one card), ``TokenStream`` data, the
+           launcher's optimizer: 1 warm-up + 5 timed steps through
+           ``TrainRunner`` (ms/step, tokens/s, peak memory; every loss
+           finite, the first within 1.0 of ln(vocab)), one profiled step;
+           the smoke config in fp32 (TF32 off) for 3 steps on the card and
+           on the CPU from the same parameters, losses and parameters
+           within 1e-5 relative; B8 never launched (training runs its
+           differentiable plain version)
+  train_din ``repro_torch.launch.train.main`` on DIN's published config
+           (10 steps); the cell din x train_batch (65,536 ``CTRStream``
+           requests a batch, the 10^8 x 18 item table on the card): 1
+           warm-up + 5 timed steps (ms/step, samples/s, peak memory), one
+           profiled step, 100,000 item rows no batch looked up unchanged
+           bit for bit with zero moments; ``make_retrieval_step`` (top 100)
+           over 262,144 Zipf candidates (retrieval_cand's 10^6 cut: the
+           [N, 100, 144] fp32 attention features are 57.6 GB at 10^6),
+           values and indices equal to a full stable sort's top 100; a
+           smoke DIN step on the card against the CPU
   validate ``repro_torch.launch.stream_run`` at R-MAT scale 10, 4 batches,
            ``--device-tier`` with ``--trace --metrics --cache-trace``; the
            three artifacts accepted by ``repro_torch.obs.validate.main``
@@ -199,7 +234,8 @@ through ``pairs``; ``stream``; ``stream_routes``; each run of
 ``query_serve``; each run of ``spmd``, less the launches its checks add;
 the 8,192-token
 ``serve_lm`` run; ``serve_din``; each launcher run and each cell's kernel
-route in ``train_gnn``) and read just after it; launches made by
+route in ``train_gnn``, the hub-split cells' too) and read just after
+it; launches made by
 ``checks`` and ``timing`` are not in them, except for B2, whose only path is
 its cross-check against B1 (the reference has no other caller of it).
 """
@@ -250,6 +286,9 @@ STREAM_ARGV = ["--scale", "14", "--edge-factor", "16", "--batches", "16",
                "--p", "8", "--cache-rows", "256", "--device-tier",
                "--device-slots", "1024", "--device-width", "512",
                "--checkpoint-every", "4"]
+# the profiled pass over the stream: the first 4 of its 16 batches, a
+# quarter of the updates (all 16 under the profiler took ~99 s)
+STREAM_PROFILED_BATCHES = 4
 ROUTES_ARGV = ["--scale", "12", "--edge-factor", "16", "--batches", "8",
                "--p", "4", "--cache-rows", "256", "--adversarial",
                "--device-tier", "--device-scope", "per_rank",
@@ -275,7 +314,7 @@ QS_RANKS_QUERIES = 512
 QS_OPEN_FLAGS = ["--open-loop", "poisson", "--slo", "--tenants", "3",
                  "--ewma-scores", "--queries", "1024"]
 QS_TIMED_ARGV = ["--scale", "16", "--edge-factor", "16", "--p", "8",
-                 "--workload", "zipf", "--write-frac", "0.2",
+                 "--ranks", "8", "--workload", "zipf", "--write-frac", "0.2",
                  "--batch-window", "64", "--device-tier",
                  "--device-slots", "4096"]
 QS_TIMED_QUERIES = 256
@@ -359,10 +398,47 @@ B9_TURN_STEPS = 21  # a run of those turns: 1 warm-up + 20 timed steps
 B9_PER_STEP = {("gin-tu", "smoke"): 4, ("gat-cora", "smoke"): 4,
                ("pna", "smoke"): 11, ("mace", "smoke"): 23,
                ("gin-tu", "ogb_products"): 5,
-               ("gat-cora", "full_graph_sm"): 4, ("mace", "molecule"): 23}
+               ("gat-cora", "full_graph_sm"): 4, ("mace", "molecule"): 23,
+               # GAT's hub split: 4 a layer (each stream's denominator and
+               # aggregation); the same edges unsplit: 2 a layer
+               ("gat-cora", "ogb_products_hub"): 8,
+               ("gat-cora", "ogb_products_cut"): 4}
+# GAT's hub split (the reference's dryrun, launch/dryrun.py:257-282) at
+# ogb_products' nodes: the 65,536 sources of highest out-degree as hub rows,
+# sources drawn from a power law whose top 65,536 carry ~35% of the edges
+# (the dryrun's measured hot share). Edges cut to a tenth (6,185,914):
+# the last layer's [E, 8 heads, 47 classes] fp32 messages are 1,504 B an
+# edge, ~6.6 KB an edge at the backward's peak, ~400 GB at 61.9M
+HUB_CAPACITY = 65_536
+HUB_HOT_SHARE = 0.35
+HUB_EDGE_CUT = 10
 # kernel route vs plain route, each step's loss: relative. The routes
 # differ in B9's fp32 summation order only; 6 Adam steps at lr 1e-3 carry it
 TRAIN_LOSS_RTOL = 1e-4
+# LM training (phase train_lm): the launcher on stablelm-1.6b's published
+# config (its TokenStream of 4 x 64, 2 microbatches); the cell
+# stablelm-1.6b x train_4k at the published width and depth (24 layers,
+# bf16, remat on) and train_4k's sequence of 4,096, its global batch cut
+# from 256 to 4 (2 microbatches of 2) to fit one card's 80 GB with the
+# AdamW moments; then the smoke config in fp32 on the card against the CPU
+LM_TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--steps", "10"]
+LM_CELL_BATCH = 4
+LM_CELL_MICROBATCHES = 2
+LM_FIRST_LOSS_TOL = 1.0  # |first loss - ln(vocab)| of random weights
+LM_PARITY_STEPS = 3
+# the card's fp32 train steps against the CPU's: the CPU parity tests'
+# tolerance (tests/test_torch_lm_train.py), relative
+PARITY_RTOL = 1e-5
+# recsys training (phase train_din): the launcher on DIN's published
+# config; the cell din x train_batch (65,536 requests, 10^8 x 18 item
+# table on the card; not cut); retrieval at retrieval_cand with the
+# candidates cut from 1,000,000 to 262,144: the [N, 100, 144] fp32
+# attention features are 57.6 GB at 10^6
+DIN_TRAIN_ARGV = ["--arch", "din", "--steps", "10"]
+DIN_CELL_BATCH = 65_536
+RETRIEVAL_CANDIDATES = 262_144
+RETRIEVAL_TOP_K = 100
+DIN_UNTOUCHED_SAMPLE = 100_000  # item rows no batch looked up, checked
 # MACE's graph energies at the rotated positions against the energies, per
 # graph relative to the largest |energy|: the reference's invariance
 # tolerance (the coupling tensors' floor ~1e-6, fp32 sums)
@@ -442,7 +518,17 @@ def finish_parent_builds(started):
     return out
 
 
+_T0 = time.perf_counter()
+_LAST = [_T0]
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's record gets ``phase_wall_s``, the
+    seconds since the previous phase's line (the phase's own wall)."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_wall_s": now - _LAST[0]}
+        _LAST[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1659,53 +1745,56 @@ def energy_rotation(cfg, params, batch, dev, np, torch):
     return out
 
 
-def split_train_time(rows):
-    """Device ms of one GNN train step by kind, from ``kernel_rows``: B9,
-    the gathers (``x[src]`` and B9's backward ``index_select``), the
-    scatters of the gathers' backward (``index_put_`` with accumulate: its
-    sort and its kernel), the GEMMs (cuBLAS's batched GEMV kernels of
-    MACE's small contractions among them) and the rest."""
-    kinds = (("segment_sum_sorted", re.compile(r"segment_sum_kernel")),
-             ("gather_backward_scatter", re.compile(
-                 r"indexing_backward|index_put|scatter|indexFunc|index_add"
-                 r"|RadixSort|radix_sort|cub::", re.I)),
-             ("gather", re.compile(r"index_elementwise|gather|indexSelect"
-                                   r"|index_select", re.I)),
-             ("gemm", re.compile(r"gemm|gemv|xmma|nvjet|cutlass", re.I)))
-    out = {k: 0.0 for k, _ in kinds}
-    out["other"] = 0.0
-    for r in rows:
-        kind = next((k for k, pat in kinds if pat.search(r["name"])),
-                    "other")
-        out[kind] += r["device_ms"]
-    out["busy"] = sum(r["device_ms"] for r in rows)
-    return out
+# the kinds of device time of a train step (``profiled_step``), matched in
+# order: a GNN step's B9, the gathers (``x[src]`` and B9's backward
+# ``index_select``), the scatters of the gathers' backward (``index_put_``
+# with accumulate: its sort and its kernel), the GEMMs (cuBLAS's batched
+# GEMV kernels of MACE's small contractions among them); an LM or DIN
+# step's GEMMs, softmax, the table gradient's scatter, gathers, reductions
+# and elementwise kernels
+GNN_KINDS = (
+    ("segment_sum_sorted", r"segment_sum_kernel"),
+    ("gather_backward_scatter", r"indexing_backward|index_put|scatter"
+                                r"|indexFunc|index_add|RadixSort"
+                                r"|radix_sort|cub::"),
+    ("gather", r"index_elementwise|gather|indexSelect|index_select"),
+    ("gemm", r"gemm|gemv|xmma|nvjet|cutlass"))
+TRAIN_KINDS = (
+    ("gemm", r"gemm|gemv|xmma|nvjet|cutlass"),
+    ("softmax", r"softmax"),
+    ("embedding_backward", r"indexing_backward|index_put|RadixSort"
+                           r"|radix_sort|cub::|sort"),
+    ("gather", r"index_elementwise|gather|indexSelect|index_select"),
+    ("reduce", r"reduce"),
+    ("elementwise", r"elementwise|vectorized"))
 
 
-def train_cell(arch_id, shape_id, dev, np, torch):
+def train_cell(arch_id, shape_id, dev, np, torch, batch=None, cell=None):
     """One (arch, shape) cell through the launcher's own wiring
-    (``launch.train.wire_gnn``: the batch's edges sorted once, the
-    launcher's optimizer and step), ``TrainRunner`` for TRAIN_STEPS steps
-    (the first a warm-up); then one profiled step (and, for MACE, the
-    energies' rotation invariance, ``energy_rotation``); then the same
-    steps on the plain route from the same start; for ``B9_TURN_CELLS``,
-    with the parent's B9 in ``build/parent/``, the kernel route's steps
-    again with this B9 and with the parent's, in turns. Returns (record, B9
-    launches of the kernel route's steps)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.distributed.fault_tolerance import (
-        StragglerMonitor,
-        TrainRunner,
-    )
+    (``launch.train.wire_gnn``: the batch's edges sorted once, each stream
+    of a hub-split batch by its own destinations, the launcher's optimizer
+    and step), ``TrainRunner`` for TRAIN_STEPS steps (the first a
+    warm-up); then one profiled step (and, for MACE, the energies'
+    rotation invariance, ``energy_rotation``); then the same steps on the
+    plain route from the same start; for ``B9_TURN_CELLS``, with the
+    parent's B9 in ``build/parent/``, the kernel route's steps again with
+    this B9 and with the parent's, in turns. ``batch`` is (cfg, batch on
+    the card), ``gnn_cell_batch``'s by default; ``cell`` names it in
+    ``B9_PER_STEP`` (the shape by default). Returns (record, B9 launches
+    of the kernel route's steps)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_sum_sorted as ss
     from repro_torch.launch.train import wire_gnn
 
     t0 = time.perf_counter()
-    cfg, raw = gnn_cell_batch(arch_id, shape_id, dev, torch)
+    cfg, raw = (gnn_cell_batch(arch_id, shape_id, dev, torch)
+                if batch is None else batch)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    cell = cell or shape_id
+    dst_keys = [k for k in ("edge_dst", "edge_dst_cold", "edge_dst_hot")
+                if k in raw]
+    mask_keys = [k.replace("dst", "mask") for k in dst_keys]
     wire_s = {}
 
     def run(route, steps=TRAIN_STEPS):
@@ -1713,76 +1802,39 @@ def train_cell(arch_id, shape_id, dev, np, torch):
         params, optim, step, data_fn = wire_gnn(arch_id, cfg, raw, 0, dev)
         torch.cuda.synchronize()
         wire_s[route] = time.perf_counter() - t0
-        dst = data_fn(0)["edge_dst"]
-        if not bool((dst[1:] >= dst[:-1]).all()):
-            raise RuntimeError(f"{arch_id}: edges not sorted by destination")
+        for k in dst_keys:
+            dst = data_fn(0)[k]
+            if not bool((dst[1:] >= dst[:-1]).all()):
+                raise RuntimeError(f"{arch_id}: {k} not sorted")
         gid = data_fn(0).get("graph_ids")
         if gid is not None and not bool((gid[1:] >= gid[:-1]).all()):
             raise RuntimeError(f"{arch_id}: graph_ids not nondecreasing")
-        calls = [0]
-
-        def counted(*a):
-            calls[0] += 1
-            return step(*a)
-
-        runner = TrainRunner(step_fn=counted, data_fn=data_fn,
-                             monitor=StragglerMonitor())
-        torch.cuda.reset_peak_memory_stats()
         ss.reset_launches()
-        params, opt_state, log = runner.run(
-            params, optim.init(params), start_step=0, n_steps=steps)
-        torch.cuda.synchronize()
-        launches = ss.launches()
-        timed = [m["dt"] * 1e3 for m in log[1:]]
-        med = statistics.median(timed)
-        losses = [m["loss"] for m in log]
-        if calls[0] != steps:
-            raise RuntimeError(f"{arch_id} {route}: step_fn called "
-                               f"{calls[0]} times for {steps} steps "
-                               "(a retry hid a fault)")
-        if not all(np.isfinite(losses)):
-            raise RuntimeError(f"{arch_id} {route}: loss {losses}")
-        rec = {"route": route, "steps": steps,
-               "step_fn_calls": calls[0], "losses": losses,
-               "first_step_ms": log[0]["dt"] * 1e3,
-               "ms_per_step_median": med, "ms_per_step": timed,
-               "edges_per_s": n_edges / med * 1e3,
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "segment_sum_sorted_launches": launches,
-               "straggler_flags": len(runner.monitor.flagged)}
+        rec, params, opt_state = timed_steps(
+            step, data_fn, params, optim.init(params), steps, np, torch,
+            f"{arch_id} {route}")
+        rec.update(route=route, segment_sum_sorted_launches=ss.launches(),
+                   edges_per_s=n_edges / rec["ms_per_step_median"] * 1e3)
         return rec, params, opt_state, step, data_fn(0)
 
-    n_nodes, n_edges = raw["node_feat"].shape[0], raw["edge_dst"].shape[0]
+    n_nodes = raw["node_feat"].shape[0]
+    n_edges = sum(raw[k].shape[0] for k in dst_keys)
     kernel, params, opt_state, step, batch = run("kernel")
-    want = B9_PER_STEP[(arch_id, shape_id)] * TRAIN_STEPS
+    want = B9_PER_STEP[(arch_id, cell)] * TRAIN_STEPS
     if kernel["segment_sum_sorted_launches"] != want:
-        raise RuntimeError(f"{arch_id} x {shape_id}: B9 launched "
+        raise RuntimeError(f"{arch_id} x {cell}: B9 launched "
                            f"{kernel['segment_sum_sorted_launches']} times "
                            f"in {TRAIN_STEPS} steps, expected {want}")
-    rec = {"arch": arch_id, "shape": shape_id,
+    rec = {"arch": arch_id, "shape": shape_id, "cell": cell,
            "config": {k: v for k, v in dataclasses.asdict(cfg).items()
                       if k != "dtype"},
            "nodes": n_nodes, "edges": n_edges,
-           "unmasked_edges": int(batch["edge_mask"].sum()),
+           "unmasked_edges": sum(int(batch[k].sum()) for k in mask_keys),
            "batch_gen_s": gen_s, "wire_s": wire_s,
            "b9_launches_per_step": kernel["segment_sum_sorted_launches"]
            / TRAIN_STEPS, "kernel_route": kernel}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, m = step(params, opt_state, batch)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    rows = kernel_rows(prof, torch)
-    split = split_train_time(rows)
-    if split["busy"] > window_ms:
-        raise RuntimeError(f"{arch_id}: device busy time exceeds the window")
-    rec["profiled_step"] = {"window_ms": window_ms, "device_ms": split,
-                            "idle_share": 1.0 - split["busy"] / window_ms,
-                            "top_device_kernels": rows[:12]}
-    del prof
+    rec["profiled_step"], params, opt_state = profiled_step(
+        step, params, opt_state, batch, GNN_KINDS, torch)
     if "positions" in batch:  # MACE: its energies, at full width
         rec["energy_rotation"] = energy_rotation(cfg, params, batch, dev, np,
                                                  torch)
@@ -1802,7 +1854,7 @@ def train_cell(arch_id, shape_id, dev, np, torch):
     rec["kernel_vs_plain_route"] = {"loss_rel_err": rel,
                                     "tolerance": TRAIN_LOSS_RTOL}
     if not max(rel) <= TRAIN_LOSS_RTOL:
-        raise RuntimeError(f"{arch_id} x {shape_id}: kernel route != plain "
+        raise RuntimeError(f"{arch_id} x {cell}: kernel route != plain "
                            f"route {rel}")
     parent = parent_segment_sum()
     if parent is not None and (arch_id, shape_id) in B9_TURN_CELLS:
@@ -1826,15 +1878,12 @@ def train_cell(arch_id, shape_id, dev, np, torch):
 
 
 def phase_train_gnn(dev, np, torch):
-    """The training path: ``repro_torch.launch.train.main`` on the three GNN
+    """The training path: ``repro_torch.launch.train.main`` on the four GNN
     archs (the reference's smoke batch, TRAIN_LAUNCHER_STEPS steps), then
-    the TRAIN_CELLS at full width (``train_cell``). Returns (phase record,
-    B9 launches on the path)."""
-    import contextlib
-    import io
-
+    the TRAIN_CELLS at full width (``train_cell``), then GAT's hub split at
+    ogb_products' nodes (``hub_split_cells``). Returns (phase record, B9
+    launches on the path)."""
     from repro_torch.kernels import segment_sum_sorted as ss
-    from repro_torch.launch import train
 
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         raise RuntimeError("train_gnn: fp32 GEMMs must not run in TF32")
@@ -1844,33 +1893,467 @@ def phase_train_gnn(dev, np, torch):
     launches = 0
     for arch in TRAIN_ARCHS:
         argv = ["--arch", arch, "--steps", str(TRAIN_LAUNCHER_STEPS)]
-        out, run = io.StringIO(), {}
         ss.reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = train.main(argv, result=run)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        summary = launcher_run(argv, np, torch)
         n = ss.launches()
-        print(out.getvalue(), end="", flush=True)
         want = B9_PER_STEP[(arch, "smoke")] * TRAIN_LAUNCHER_STEPS
-        losses = [m["loss"] for m in run["log"]]
-        if rc != 0 or n != want or not all(np.isfinite(losses)):
-            raise RuntimeError(f"train.main {argv}: rc {rc}, B9 launched "
-                               f"{n} times (expected {want}), losses "
-                               f"{losses}")
-        rec["launcher"][arch] = {
-            "argv": " ".join(argv), "line": out.getvalue().strip(),
-            "seconds": seconds, "segment_sum_sorted_launches": n,
-            "first_loss": losses[0], "last_loss": losses[-1],
-            "ms_per_step_median": statistics.median(
-                m["dt"] for m in run["log"][1:]) * 1e3}
+        if n != want:
+            raise RuntimeError(f"train.main {argv}: B9 launched {n} times "
+                               f"(expected {want})")
+        rec["launcher"][arch] = {**summary, "segment_sum_sorted_launches": n}
         launches += n
     for arch, shape in TRAIN_CELLS:
         cell, n = train_cell(arch, shape, dev, np, torch)
         rec["cells"].append(cell)
         launches += n
+    rec["hub_split"], cells, n = hub_split_cells(dev, np, torch)
+    rec["cells"].extend(cells)
+    launches += n
     return rec, launches
+
+
+def hub_split_batch(batch, capacity, np):
+    """A plain GNN batch split into the reference's two edge streams
+    (numpy edge arrays; other entries are kept as they are): the
+    ``capacity`` sources of highest out-degree (``split_hot_cold``, scores
+    = out-degree) form the hub table; an edge whose source is a hub goes to
+    the hot stream, the rest stay cold, each stream in the batch's edge
+    order. (The reference has no such helper: its dryrun declares the
+    shapes only.)"""
+    from repro_torch.distributed.hub_gather import split_hot_cold
+
+    src = batch["edge_src"]
+    deg = np.bincount(src, minlength=batch["node_feat"].shape[0])
+    plan = split_hot_cold(src, deg, capacity)
+    hot = plan.is_hot
+    out = {k: v for k, v in batch.items()
+           if k not in ("edge_src", "edge_dst", "edge_mask")}
+    out.update(
+        hub_ids=plan.hot_ids.astype(np.int32),
+        edge_src_cold=src[~hot], edge_src_hub_pos=plan.hot_pos[hot],
+        edge_dst_cold=batch["edge_dst"][~hot],
+        edge_dst_hot=batch["edge_dst"][hot],
+        edge_mask_cold=batch["edge_mask"][~hot],
+        edge_mask_hot=batch["edge_mask"][hot])
+    return out
+
+
+def hub_split_cells(dev, np, torch):
+    """gat-cora's published config at ogb_products' 2,449,029 nodes, a
+    tenth of its edges (``HUB_EDGE_CUT``): sources drawn from a power law
+    whose top ``HUB_CAPACITY`` ranks carry ``HUB_HOT_SHARE`` of the edges
+    (rank r with P(rank <= k) = (k / n)^b, ranks mapped to nodes by a
+    random permutation), destinations uniform, edge_mask = rand < 0.9;
+    split by ``hub_split_batch``. ``train_cell`` on the split batch (B9 8
+    times a step) and on the same edges unsplit (4): each kernel route ==
+    its plain route, split == unsplit, every loss within
+    ``TRAIN_LOSS_RTOL``. Returns (record, [cell records], B9 launches)."""
+    from repro_torch.configs.inputs import _adapt_cfg
+    from repro_torch.configs.registry import get_arch
+
+    arch = get_arch("gat-cora")
+    shape = arch.shapes["ogb_products"]
+    cfg = _adapt_cfg(arch, arch.config(), "ogb_products", shape)
+    n, e = shape.n_nodes, shape.n_edges // HUB_EDGE_CUT
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(0)
+    b = np.log(HUB_HOT_SHARE) / np.log(HUB_CAPACITY / n)
+    u = torch.rand((e,), generator=gen, device=dev, dtype=torch.float64)
+    rank = torch.clamp((n * u ** (1.0 / b)).long(), max=n - 1)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    edges = {"edge_src": perm[rank].int(),
+             "edge_dst": torch.randint(0, n, (e,), generator=gen, device=dev,
+                                       dtype=torch.int32),
+             "edge_mask": torch.rand((e,), generator=gen, device=dev) < 0.9}
+    del u, rank, perm
+    nodes = {"node_feat": torch.randn((n, shape.d_feat), generator=gen,
+                                      device=dev),
+             "node_mask": torch.ones((n,), dtype=torch.bool, device=dev),
+             "labels": torch.randint(0, cfg.n_classes, (n,), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "label_mask": torch.ones((n,), dtype=torch.bool, device=dev)}
+    host = {k: v.cpu().numpy() for k, v in edges.items()}
+    t1 = time.perf_counter()
+    split = hub_split_batch({**nodes, **host}, HUB_CAPACITY, np)
+    plan_s = time.perf_counter() - t1
+    split = {k: torch.as_tensor(v, device=dev) for k, v in split.items()}
+    unsplit = {**nodes, **edges}
+    torch.cuda.synchronize()
+    hot = int(split["edge_src_hub_pos"].shape[0])
+    rec = {"nodes": n, "edges": e, "edges_full": shape.n_edges,
+           "edge_cut": HUB_EDGE_CUT, "hub_rows": HUB_CAPACITY,
+           "power_law_exponent": float(b),
+           "hot_edges": hot, "hot_share": hot / e,
+           "hot_share_target": HUB_HOT_SHARE,
+           "batch_s": time.perf_counter() - t0, "plan_s": plan_s}
+    cells, launches = [], 0
+    for name, batch in (("ogb_products_hub", split),
+                        ("ogb_products_cut", unsplit)):
+        c, k = train_cell("gat-cora", "ogb_products", dev, np, torch,
+                          batch=(cfg, batch), cell=name)
+        cells.append(c)
+        launches += k
+    del split, unsplit, nodes, edges
+    ls, lu = (c["kernel_route"]["losses"] for c in cells)
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(ls, lu)]
+    rec["split_vs_unsplit"] = {"loss_rel_err": rel,
+                               "tolerance": TRAIN_LOSS_RTOL}
+    if not max(rel) <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"gat-cora hub split != unsplit {rel}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, cells, launches
+
+
+def launcher_run(argv, np, torch):
+    """``repro_torch.launch.train.main(argv)`` with its line captured and
+    printed: its summary (the run's parameters and optimizer state are
+    dropped, so that the next cell's peak does not hold them). Fails
+    unless it returns 0 with every loss finite."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    out, run = io.StringIO(), {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(argv, result=run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    losses = [m["loss"] for m in run["log"]]
+    if rc != 0 or not all(np.isfinite(losses)):
+        raise RuntimeError(f"train.main {argv}: rc {rc}, losses {losses}")
+    summary = {"argv": " ".join(argv), "line": out.getvalue().strip(),
+               "seconds": seconds, "first_loss": losses[0],
+               "last_loss": losses[-1],
+               "ms_per_step_median": statistics.median(
+                   m["dt"] for m in run["log"][1:]) * 1e3}
+    run.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def timed_steps(step, data_fn, params, opt_state, steps, np, torch,
+                tag="train"):
+    """``steps`` steps through ``TrainRunner`` (the first a warm-up; a
+    step's time ends with its loss on the host, after the queued update):
+    (record, params, opt_state). Fails if a step was retried (a retry
+    would hide a fault) or a loss is not finite. The peak counts from the
+    call's start."""
+    from repro_torch.distributed.fault_tolerance import (
+        StragglerMonitor,
+        TrainRunner,
+    )
+
+    calls = [0]
+
+    def counted(*a):
+        calls[0] += 1
+        return step(*a)
+
+    runner = TrainRunner(step_fn=counted, data_fn=data_fn,
+                         monitor=StragglerMonitor())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, log = runner.run(params, opt_state, start_step=0,
+                                        n_steps=steps)
+    torch.cuda.synchronize()
+    losses = [m["loss"] for m in log]
+    if calls[0] != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"{tag}: {calls[0]} step calls for {steps} "
+                           f"steps, losses {losses}")
+    timed = [m["dt"] * 1e3 for m in log[1:]]
+    return {"steps": steps, "step_fn_calls": calls[0], "losses": losses,
+            "first_step_ms": log[0]["dt"] * 1e3,
+            "ms_per_step_median": statistics.median(timed),
+            "ms_per_step": timed,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "straggler_flags": len(runner.monitor.flagged)}, params, opt_state
+
+
+def profiled_step(step, params, opt_state, batch, kinds, torch):
+    """One train step under ``torch.profiler``: (the device time split by
+    ``kinds``, the first pattern that matches a kernel's name, with the
+    idle share; params, opt_state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof, torch)
+    split = {k: 0.0 for k, _ in kinds}
+    split["other"] = 0.0
+    for r in rows:
+        kind = next((k for k, pat in kinds
+                     if re.search(pat, r["name"], re.I)), "other")
+        split[kind] += r["device_ms"]
+    busy = sum(r["device_ms"] for r in rows)
+    if busy > window_ms:
+        raise RuntimeError("profiled step: device busy time exceeds the "
+                           "window")
+    return {"window_ms": window_ms, "device_ms": {"busy": busy, **split},
+            "idle_share": 1.0 - busy / window_ms,
+            "kernels": sum(r["calls"] for r in rows),
+            "top_device_kernels": rows[:12]}, params, opt_state
+
+
+def card_vs_cpu(make_step, params, batches, np, torch):
+    """The same functional train step from the same parameters on the
+    CPU and on the card: every loss and every parameter leaf within
+    ``PARITY_RTOL`` (relative, a leaf in L2)."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        step, optim = make_step()
+        state = optim.init(p)
+        losses = []
+        for b in batches:
+            p, state, m = step(p, state, {k: torch.as_tensor(v, device=dev)
+                                          for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        out[dev] = (losses, [x.cpu() for x in tree_leaves(p)])
+    (l_cpu, p_cpu), (l_card, p_card) = out["cpu"], out["cuda"]
+    loss_err = max(abs(a - b) / max(abs(a), 1e-30)
+                   for a, b in zip(l_cpu, l_card))
+    leaf_err = max(float((a - b).norm() / max(float(a.norm()), 1e-30))
+                   for a, b in zip(p_cpu, p_card))
+    rec = {"steps": len(batches), "losses_cpu": l_cpu, "losses_card": l_card,
+           "loss_rel_err": loss_err, "param_rel_l2_err": leaf_err,
+           "tolerance": PARITY_RTOL}
+    if not (loss_err <= PARITY_RTOL and leaf_err <= PARITY_RTOL):
+        raise RuntimeError(f"card != CPU {rec}")
+    return rec
+
+
+def phase_train_lm(dev, np, torch):
+    """LM training on the card: (a) ``launch.train.main`` on
+    stablelm-1.6b's published config; (b) the stablelm-1.6b x train_4k
+    cell (``LM_CELL_*``: the launcher's parameters and optimizer, its step
+    at ``LM_CELL_MICROBATCHES``, ``TokenStream`` batches of 4 x 4,096),
+    1 warm-up + 5 timed steps (ms/step, tokens/s, peak memory, every loss
+    finite, the first within ``LM_FIRST_LOSS_TOL`` of ln(vocab)) and one
+    profiled step; (c) the smoke config in fp32 (TF32 off, asserted) for
+    ``LM_PARITY_STEPS`` steps on the card and on the CPU from the same
+    parameters (``card_vs_cpu``). B8 is never launched (training runs
+    its differentiable plain version at the flash cutoff; 4,096 is under
+    it)."""
+    import math
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import train_loop as tl
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise RuntimeError("train_lm: fp32 GEMMs must not run in TF32")
+    rec = {"phase": "train_lm"}
+    fa.reset_launches()
+    rec["launcher"] = launcher_run(LM_TRAIN_ARGV, np, torch)
+
+    arch = get_arch("stablelm-1.6b")
+    shape = arch.shapes["train_4k"]
+    cfg = arch.config()
+    if not cfg.remat or cfg.dtype != torch.bfloat16:
+        raise RuntimeError(f"train_lm: published config {cfg}")
+    steps = TRAIN_STEPS
+    t0 = time.perf_counter()
+    params, optim, _, _ = train.build("stablelm-1.6b", 0, dev, steps=steps)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = tl.make_lm_train_step(cfg, optim,
+                                 n_microbatches=LM_CELL_MICROBATCHES)
+    stream = TokenStream(cfg.vocab, LM_CELL_BATCH, shape.seq_len, seed=0)
+
+    def data_fn(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in stream.batch_at(i).items()}
+
+    cell, params, state = timed_steps(step, data_fn, params,
+                                      optim.init(params), steps, np, torch)
+    first = cell["losses"][0]
+    if abs(first - math.log(cfg.vocab)) > LM_FIRST_LOSS_TOL:
+        raise RuntimeError(f"train_lm: first loss {first}, ln(vocab) "
+                           f"{math.log(cfg.vocab)}")
+    tokens = LM_CELL_BATCH * shape.seq_len
+    cell.update(
+        cell="stablelm-1.6b x train_4k", seq_len=shape.seq_len,
+        global_batch=LM_CELL_BATCH, global_batch_published=shape.global_batch,
+        microbatches=LM_CELL_MICROBATCHES, params=cfg.param_count(),
+        layers=cfg.n_layers, d_model=cfg.d_model, remat=cfg.remat,
+        dtype=str(cfg.dtype), init_s=init_s, ln_vocab=math.log(cfg.vocab),
+        tokens_per_step=tokens,
+        tokens_per_s=tokens / cell["ms_per_step_median"] * 1e3,
+        model_tflops_per_s=6.0 * cfg.param_count() * tokens
+        / cell["ms_per_step_median"] / 1e9)
+    cell["profiled_step"], params, state = profiled_step(
+        step, params, state, data_fn(steps), TRAIN_KINDS, torch)
+    rec["cell"] = cell
+    del params, state, step, optim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    import dataclasses as dc
+
+    from repro_torch.train import optimizer as opt
+
+    cfg32 = dc.replace(arch.smoke_config(), dtype=torch.float32, remat=True)
+    p0 = tfm.init_params(cfg32, torch.Generator().manual_seed(0))
+    small = TokenStream(cfg32.vocab, 4, 64, seed=0)
+
+    def make_step():
+        o = opt.adamw(lr=opt.cosine_schedule(
+            3e-4, min(20, LM_PARITY_STEPS // 4 + 1), LM_PARITY_STEPS))
+        return tl.make_lm_train_step(cfg32, o, n_microbatches=2), o
+
+    rec["smoke_fp32_card_vs_cpu"] = card_vs_cpu(
+        make_step, p0, [small.batch_at(i) for i in range(LM_PARITY_STEPS)],
+        np, torch)
+    rec["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    rec["flash_attention_launches"] = fa.launches()
+    if fa.launches():
+        raise RuntimeError("train_lm: training launched B8")
+    return rec
+
+
+def phase_train_din(dev, np, torch):
+    """Recsys training on the card: (a) ``launch.train.main`` on DIN's
+    published config; (b) the din x train_batch cell: the launcher's
+    parameters, optimizer and step at ``DIN_CELL_BATCH`` requests a batch
+    of ``CTRStream``, 1 warm-up + 5 timed steps (ms/step, samples/s, peak
+    memory) and one profiled step; ``DIN_UNTOUCHED_SAMPLE`` item rows that
+    no batch looked up keep their bits and zero moments, the rows of the
+    target items moved; (c) ``make_retrieval_step(retrieval_score,
+    top_k=100)`` at ``RETRIEVAL_CANDIDATES`` Zipf candidates: its values and
+    indices equal the top 100 of a full stable sort of the same scores;
+    then a DIN smoke step on the card against the CPU."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.launch import train
+    from repro_torch.models.recsys import din
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+
+    rec = {"phase": "train_din"}
+    rec["launcher"] = launcher_run(DIN_TRAIN_ARGV, np, torch)
+
+    cfg = get_arch("din").config()
+    steps = TRAIN_STEPS
+    t0 = time.perf_counter()
+    params, optim, step, _ = train.build("din", 0, dev, steps=steps)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stream = CTRStream(cfg.n_items, cfg.n_cats, DIN_CELL_BATCH,
+                       seq_len=cfg.seq_len, d_profile=cfg.d_profile, seed=0)
+    t0 = time.perf_counter()
+    host = [stream.batch_at(i) for i in range(steps + 1)]
+    batch_s = time.perf_counter() - t0
+    seen = np.unique(np.concatenate(
+        [np.concatenate([b["hist_items"].ravel(), b["target_item"]])
+         for b in host]))
+    rng = np.random.default_rng(1)
+    cand = rng.integers(0, cfg.n_items, 4 * DIN_UNTOUCHED_SAMPLE)
+    cold = torch.as_tensor(
+        cand[~np.isin(cand, seen)][:DIN_UNTOUCHED_SAMPLE], device=dev)
+    hot = torch.as_tensor(np.unique(np.concatenate(
+        [b["target_item"] for b in host[:steps]])), device=dev)
+    cold_rows = params["item_table"][cold].clone()
+    hot_rows = params["item_table"][hot].clone()
+
+    def data_fn(i):
+        return {k: torch.as_tensor(v, device=dev) for k, v in host[i].items()}
+
+    cell, params, state = timed_steps(step, data_fn, params,
+                                      optim.init(params), steps, np, torch)
+    untouched = {
+        "rows": int(cold.numel()), "looked_up_rows": int(seen.size),
+        "unchanged": bool(torch.equal(params["item_table"][cold], cold_rows)),
+        "zero_moments": bool(not state.mu["item_table"][cold].any()
+                             and not state.nu["item_table"][cold].any()),
+        "target_rows_moved": int((params["item_table"][hot] != hot_rows)
+                                 .any(1).sum()), "target_rows": int(
+                                     hot.numel())}
+    if not (untouched["rows"] == DIN_UNTOUCHED_SAMPLE
+            and untouched["unchanged"] and untouched["zero_moments"]
+            and untouched["target_rows_moved"] > 0):
+        raise RuntimeError(f"train_din: rows no batch touched {untouched}")
+    cell.update(
+        cell="din x train_batch", batch=DIN_CELL_BATCH,
+        item_table=list(params["item_table"].shape), init_s=init_s,
+        host_batches_s=batch_s, untouched_rows=untouched,
+        samples_per_s=DIN_CELL_BATCH / cell["ms_per_step_median"] * 1e3)
+    cell["profiled_step"], params, state = profiled_step(
+        step, params, state, data_fn(steps), TRAIN_KINDS, torch)
+    rec["cell"] = cell
+    del state, step, optim, cold_rows, hot_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) retrieval: one user against RETRIEVAL_CANDIDATES Zipf candidates
+    user = host[0]
+    items = ((rng.zipf(1.3, RETRIEVAL_CANDIDATES) - 1) % cfg.n_items).astype(
+        np.int32)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in {
+        "hist_items": user["hist_items"][:1],
+        "hist_cats": user["hist_cats"][:1],
+        "hist_mask": user["hist_mask"][:1],
+        "user_profile": user["user_profile"][:1],
+        "cand_items": items,
+        "cand_cats": (items % cfg.n_cats).astype(np.int32)}.items()}
+    del host
+    retrieval = tl.make_retrieval_step(din.retrieval_score, cfg,
+                                       top_k=RETRIEVAL_TOP_K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        vals, idx = retrieval(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        scores = din.retrieval_score(params, batch, cfg)
+    order = torch.sort(scores, descending=True, stable=True).indices[
+        :RETRIEVAL_TOP_K]
+    top = scores[order]
+    ret = {"candidates": RETRIEVAL_CANDIDATES,
+           "candidates_published": 1_000_000, "top_k": RETRIEVAL_TOP_K,
+           "ms": walls, "max_memory_allocated":
+               torch.cuda.max_memory_allocated(),
+           "distinct_top_values": int(torch.unique(top).numel()),
+           "indices_dtype": str(idx.dtype),
+           "equals_stable_sort": bool(torch.equal(idx.long(), order)
+                                      and torch.equal(vals, top))}
+    if not ret["equals_stable_sort"]:
+        raise RuntimeError(f"train_din: retrieval top-k != stable sort {ret}")
+    rec["retrieval"] = ret
+    del params, batch, scores, vals, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    scfg = get_arch("din").smoke_config()
+    p0 = din.init_params(scfg, torch.Generator().manual_seed(0))
+    small = CTRStream(scfg.n_items, scfg.n_cats, 128, seq_len=scfg.seq_len,
+                      d_profile=scfg.d_profile, seed=0)
+
+    def make_step():
+        o = opt.adamw(lr=1e-3, weight_decay=0.0)
+        return tl.make_recsys_train_step(din.apply, scfg, o), o
+
+    rec["smoke_card_vs_cpu"] = card_vs_cpu(
+        make_step, p0, [small.batch_at(i) for i in range(3)], np, torch)
+    return rec
 
 
 def phase_validate(torch):
@@ -2306,6 +2789,11 @@ def phase_query_serve(dev, np, torch):
     # (c) the static cell's graph, timed
     timed_argv = QS_TIMED_ARGV + ["--queries", str(QS_TIMED_QUERIES)]
     args = query_serve.parse_args(timed_argv + ["--device", "cuda"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     w = query_serve.build_service(args, dev)
     svc = w.svc
@@ -2316,6 +2804,7 @@ def phase_query_serve(dev, np, torch):
         served, n_updates = counted("timed", lambda: query_serve.closed_loop(
             args, svc, rebalancer=w.rebalancer, on_results=check))
         wall = time.perf_counter() - t0 - check.seconds
+    peak = torch.cuda.max_memory_allocated() - base
     lat = svc.scheduler.latency_summary()
     n_batches = svc.scheduler.n_batches
     if served < args.queries or sum(check.by_kind.values()) != served:
@@ -2331,6 +2820,7 @@ def phase_query_serve(dev, np, torch):
         "qps_end_to_end": served / wall, "qps_in_engine": lat.throughput_qps,
         "p50_ms": lat.p50_ms, "p90_ms": lat.p90_ms, "p99_ms": lat.p99_ms,
         "max_ms": lat.max_ms, "microbatches": n_batches,
+        "peak_bytes_beyond_start": peak,
         "provider_hit_rate": svc.provider.stats.hit_rate,
         "tier_hit_rate": svc.runtime.merged_device_stats().hit_rate,
         "host_pack_bytes": svc.engine.host_pack_bytes,
@@ -2877,7 +3367,7 @@ def spmd_edge_units(dev, np, torch, recorder):
     return out
 
 
-def phase_spmd(dev, np, torch, stream_loop):
+def phase_spmd(dev, np, torch, stream_loop, qs_loop):
     """The SPMD data plane (``distributed/spmd_runtime.py``) on the card,
     B5 and B6 on its path: (a) both kernels against their plain versions,
     tolerance 0, on units captured from the runs below (the largest S14
@@ -2889,9 +3379,10 @@ def phase_spmd(dev, np, torch, stream_loop):
     (``stream_loop``), verified against a recount, the ledger's pairs equal
     the engine's; (c) ``query_serve``: S12 ``--ranks 8 --spmd --pipeline
     --verify``, S12 ``--partition hub --ranks 8 --spmd --verify``, and S16
-    at ``QS_TIMED_ARGV --ranks 8 --spmd --pipeline`` beside the loop route
-    at ``--ranks 8`` (``SPMD_QS_QUERIES`` each, every answer checked, the
-    spans of ``obs/trace.py`` summed by name), then
+    at ``QS_TIMED_ARGV --spmd --pipeline`` (``SPMD_QS_QUERIES``, every
+    answer checked, the spans of ``obs/trace.py`` summed by name) beside
+    the loop route at the same argv, phase ``query_serve``'s (c)
+    (``qs_loop``), then
     one more window of the S16 SPMD service with its units checked and its
     cached and resident rows audited against the store; (d) the
     first ``SPMD_SYNC_UNITS`` units of (c)'s first run dispatched under
@@ -3031,93 +3522,96 @@ def phase_spmd(dev, np, torch, stream_loop):
             raise RuntimeError("spmd hub run: no split hub fragment shipped")
         rec["qs_s12_hub"]["fragment_keys_resident"] = sum(frags)
 
-        # S16: the SPMD route and the loop route, same argv but --spmd
+        # S16: the SPMD route; the loop route at the same argv but --spmd
+        # is phase query_serve's (c) (``qs_loop``), not built again here
         recorder.run("qs_s16", "off")
         rec["qs_s16"] = {}
-        for route, extra_flags in (("spmd", ["--spmd", "--pipeline"]),
-                                   ("loop", [])):
-            argv = QS_TIMED_ARGV + ["--ranks", "8", "--queries",
-                                    str(SPMD_QS_QUERIES)] + extra_flags
-            args = query_serve.parse_args(argv + ["--device", "cuda"])
-            gc.collect()
-            torch.cuda.empty_cache()
+        argv = QS_TIMED_ARGV + ["--queries", str(SPMD_QS_QUERIES),
+                                "--spmd", "--pipeline"]
+        args = query_serve.parse_args(argv + ["--device", "cuda"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        w = query_serve.build_service(args, dev)
+        svc = w.svc
+        build_s = time.perf_counter() - t0
+        check = AnswerCheck(svc, np)
+        tracer = obs_trace.enable_tracing()  # spans: where time goes
+        t0 = time.perf_counter()
+        loop = lambda: query_serve.closed_loop(  # noqa: E731
+            args, svc, rebalancer=w.rebalancer, on_results=check)
+        try:
+            served, n_updates = counted("qs_s16", loop)
             torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            w = query_serve.build_service(args, dev)
-            svc = w.svc
-            build_s = time.perf_counter() - t0
-            check = AnswerCheck(svc, np)
-            tracer = obs_trace.enable_tracing()  # spans: where time goes
-            t0 = time.perf_counter()
-            loop = lambda: query_serve.closed_loop(  # noqa: E731
-                args, svc, rebalancer=w.rebalancer, on_results=check)
-            try:
-                served, n_updates = (counted("qs_s16", loop)
-                                     if route == "spmd" else loop())
-                torch.cuda.synchronize()
-            finally:
-                obs_trace.disable_tracing()
-            wall = time.perf_counter() - t0 - check.seconds
-            if served < args.queries or sum(check.by_kind.values()) != served:
-                raise RuntimeError(f"spmd s16 {route}: {served} served, "
-                                   f"{check.by_kind} checked")
-            lat = svc.scheduler.latency_summary()
-            out = {"argv": " ".join(argv), "build_s": build_s,
-                   "served": served, "updates": n_updates,
-                   "checked": dict(check.by_kind), "wall_s": wall,
-                   "qps_end_to_end": served / wall,
-                   "qps_in_engine": lat.throughput_qps,
-                   "p50_ms": lat.p50_ms, "p99_ms": lat.p99_ms,
-                   "max_ms": lat.max_ms,
-                   "microbatches": svc.scheduler.n_batches,
-                   "peak_bytes_beyond_start":
-                       torch.cuda.max_memory_allocated() - base,
-                   "span_seconds": {
-                       k: v["total_s"]
-                       for k, v in tracer.phase_totals().items()}}
-            if route == "spmd":
-                ex = svc.engine.spmd
-                led = ex.ledger
-                a2a = [ev.get("args") or {} for ev in tracer.events
-                       if ev.get("name") == "all_to_all"]
-                # the landing holds each shipped row's ids once: its
-                # bytes are the payload's, unit by unit
-                out["landed_bytes"] = sum(a["landed_bytes"] for a in a2a)
-                out["landed_bytes_max_unit"] = max(
-                    (a["landed_bytes"] for a in a2a), default=0)
-                if any(a["landed_bytes"] != a["payload_bytes"] for a in a2a):
-                    raise RuntimeError("spmd s16: landed bytes != payload")
-                modeled = svc.runtime.serve_rows
-                if not np.array_equal(led.rows_shipped, modeled):
-                    raise RuntimeError("spmd s16: measured != modeled")
-                out["ledger"] = led.to_dict()
-                out["measured_equals_modeled"] = True
-                out["buffer"] = {"H": ex._buf.h, "W": ex._buf.w,
-                                 "f_pad": ex._f_hw}
-                out["calls"] = dict(recorder.calls)
-                out["launches"] = launches["qs_s16"]
-                # one more window on the same service, its units checked
-                recorder.run("qs_s16_window", "inline")
-                args_c = type(args)(**{**vars(args), "queries": 64,
-                                       "seed": args.seed + 1,
-                                       "write_frac": 0.0})
-                counted("qs_s16_window", lambda: query_serve.closed_loop(
-                    args_c, svc, on_results=check))
-                out["checked_window_calls"] = dict(recorder.calls)
-                # no stale cached or resident row (the S16 stream's recount
-                # is phase query_serve's; the answers were checked above)
-                cached, stale = svc.runtime.audit_freshness()
-                stale_resident = ex.audit_resident(svc.store)
-                if stale or stale_resident:
-                    raise RuntimeError(f"spmd s16: {stale} stale cached, "
-                                       f"{stale_resident} stale resident rows")
-                out["audited_rows"] = {"cached": cached,
-                                       "resident": sum(map(len,
-                                                           ex._buf.slot_of))}
-            rec["qs_s16"][route] = out
-            del svc, w, check
+        finally:
+            obs_trace.disable_tracing()
+        wall = time.perf_counter() - t0 - check.seconds
+        if served < args.queries or sum(check.by_kind.values()) != served:
+            raise RuntimeError(f"spmd s16: {served} served, "
+                               f"{check.by_kind} checked")
+        lat = svc.scheduler.latency_summary()
+        out = {"argv": " ".join(argv), "build_s": build_s,
+               "served": served, "updates": n_updates,
+               "checked": dict(check.by_kind), "wall_s": wall,
+               "qps_end_to_end": served / wall,
+               "qps_in_engine": lat.throughput_qps,
+               "p50_ms": lat.p50_ms, "p99_ms": lat.p99_ms,
+               "max_ms": lat.max_ms,
+               "microbatches": svc.scheduler.n_batches,
+               "peak_bytes_beyond_start":
+                   torch.cuda.max_memory_allocated() - base,
+               "span_seconds": {
+                   k: v["total_s"]
+                   for k, v in tracer.phase_totals().items()}}
+        ex = svc.engine.spmd
+        led = ex.ledger
+        a2a = [ev.get("args") or {} for ev in tracer.events
+               if ev.get("name") == "all_to_all"]
+        # the landing holds each shipped row's ids once: its
+        # bytes are the payload's, unit by unit
+        out["landed_bytes"] = sum(a["landed_bytes"] for a in a2a)
+        out["landed_bytes_max_unit"] = max(
+            (a["landed_bytes"] for a in a2a), default=0)
+        if any(a["landed_bytes"] != a["payload_bytes"] for a in a2a):
+            raise RuntimeError("spmd s16: landed bytes != payload")
+        modeled = svc.runtime.serve_rows
+        if not np.array_equal(led.rows_shipped, modeled):
+            raise RuntimeError("spmd s16: measured != modeled")
+        out["ledger"] = led.to_dict()
+        out["measured_equals_modeled"] = True
+        out["buffer"] = {"H": ex._buf.h, "W": ex._buf.w,
+                         "f_pad": ex._f_hw}
+        out["calls"] = dict(recorder.calls)
+        out["launches"] = launches["qs_s16"]
+        # one more window on the same service, its units checked
+        recorder.run("qs_s16_window", "inline")
+        args_c = type(args)(**{**vars(args), "queries": 64,
+                               "seed": args.seed + 1,
+                               "write_frac": 0.0})
+        counted("qs_s16_window", lambda: query_serve.closed_loop(
+            args_c, svc, on_results=check))
+        out["checked_window_calls"] = dict(recorder.calls)
+        # no stale cached or resident row (the S16 stream's recount
+        # is phase query_serve's; the answers were checked above)
+        cached, stale = svc.runtime.audit_freshness()
+        stale_resident = ex.audit_resident(svc.store)
+        if stale or stale_resident:
+            raise RuntimeError(f"spmd s16: {stale} stale cached, "
+                               f"{stale_resident} stale resident rows")
+        out["audited_rows"] = {"cached": cached,
+                               "resident": sum(map(len,
+                                                   ex._buf.slot_of))}
+        rec["qs_s16"]["spmd"] = out
+        del svc, w, check
+    rec["qs_s16"]["loop"] = {
+        "from": "phase query_serve (c): the same argv without --spmd",
+        **{k: qs_loop[k] for k in (
+            "argv", "build_s", "served", "updates", "wall_s",
+            "qps_end_to_end", "qps_in_engine", "p50_ms", "p99_ms", "max_ms",
+            "microbatches", "peak_bytes_beyond_start")}}
     rec["launches"] = launches
     rec["max_abs_err"] = recorder.max_abs_err
     rec["checks"] = recorder.checks
@@ -3574,17 +4068,25 @@ def main() -> int:
         "largest_b3_calls": largest,
         "largest_b1_call": rec.largest["delta"][1]}
     del run, s_eng, s_rt, rec
-    # the same run again under torch.profiler, for the device rows only:
-    # the throughput above is the unprofiled run's
-    run_p = {}
+    # the same stream again under torch.profiler, for the device rows only
+    # (the throughput above is the unprofiled run's): an engine wired by
+    # the launcher's ``build_engine``, its first STREAM_PROFILED_BATCHES
+    # batches, then verified against a recount
+    args_p = stream_run.parse_args(STREAM_ARGV)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rc = stream_run.main(STREAM_ARGV, result=run_p)
+        eng_p = stream_run.build_engine(args_p, dev)[1]
+        wall_p = 0.0
+        for i, batch in enumerate(stream_run.batches(args_p)):
+            if i == STREAM_PROFILED_BATCHES:
+                break
+            tb = time.perf_counter()
+            eng_p.apply_batch(batch)
+            wall_p += time.perf_counter() - tb
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    if rc != 0:
-        raise RuntimeError(f"profiled stream_run.main returned {rc}")
+    eng_p.verify()
     prof_rows = kernel_rows(prof, torch)
     by_kernel = {k: sum(r["device_ms"] for r in prof_rows if k in r["name"])
                  for k in ("intersect_count_kernel",
@@ -3595,14 +4097,15 @@ def main() -> int:
                            f"profiled window {prof_s * 1e3} ms")
     stream_b3_device_ms = by_kernel["resident_intersect_kernel"]
     stream_out["profiled"] = {
-        "seconds": prof_s, "batch_wall_s": run_p["wall_s"],
-        "updates_per_s": run_p["engine"].n_updates / run_p["wall_s"],
+        "batches": STREAM_PROFILED_BATCHES,
+        "seconds": prof_s, "batch_wall_s": wall_p,
+        "updates_per_s": eng_p.n_updates / wall_p,
         "device_ms": {"busy": busy_ms, **by_kernel},
         "kernel_device_share_of_batch_wall": (
-            sum(by_kernel.values()) / (run_p["wall_s"] * 1e3)),
+            sum(by_kernel.values()) / (wall_p * 1e3)),
         "idle_share": 1.0 - busy_ms / (prof_s * 1e3),
         "top_device_kernels": prof_rows[:8]}
-    del run_p, prof
+    del eng_p, prof
     emit({**stream_out, "verified": True})
 
     # ----------------------------------------------------- stream_routes
@@ -3653,8 +4156,8 @@ def main() -> int:
     # -------------------------------------------------------------- spmd
     gc.collect()
     torch.cuda.empty_cache()
-    spmd_rec, spmd_launches, spmd_checks = phase_spmd(dev, np, torch,
-                                                      stream_loop)
+    spmd_rec, spmd_launches, spmd_checks = phase_spmd(
+        dev, np, torch, stream_loop, qs_rec["timed"])
     del stream_loop
     emit(spmd_rec)
 
@@ -3814,6 +4317,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rec, b9_launches = phase_train_gnn(dev, np, torch)
     emit(train_rec)
+    emit(phase_train_lm(dev, np, torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase_train_din(dev, np, torch))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # --------------------- the port's validator on the port's own artifacts
     emit(phase_validate(torch))
@@ -3906,8 +4415,8 @@ def main() -> int:
         "plain_ms": vs_rows["plain_ms"], "bound_ms": vs_rows["bound_ms"],
         "bound_by": vs_rows["bound_by"], "library_ms": None,
         "on_path_ms": stream_b3_device_ms,
-        "on_path_is": "device ms of all B3 launches of the profiled "
-                      "stream run (same argv as the counted run)",
+        "on_path_is": "device ms of the B3 launches of the profiled "
+                      "pass: the first 4 of the counted run's 16 batches",
         "variants": b3}, {
         "name": "bitmap_intersect_count", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/bitmap_popcount.cu",
@@ -3971,7 +4480,7 @@ def main() -> int:
         "launches": b9_launches,
         "launches_launcher": {a: r["segment_sum_sorted_launches"]
                               for a, r in train_rec["launcher"].items()},
-        "launches_cells": {f"{c['arch']} x {c['shape']}":
+        "launches_cells": {f"{c['arch']} x {c['cell']}":
                            c["kernel_route"]["segment_sum_sorted_launches"]
                            for c in train_rec["cells"]},
         "max_abs_err": max(ss_err, *(r["err"] for r in segsum.values())),

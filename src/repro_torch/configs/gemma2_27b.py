@@ -53,4 +53,5 @@ def smoke_config() -> TransformerConfig:
         zero_centered_norm=True,
         tie_embeddings=True,
         query_scale=(64 / 4) ** -0.5,
+        remat=False,
     )

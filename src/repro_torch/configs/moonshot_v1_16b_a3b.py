@@ -39,4 +39,5 @@ def smoke_config() -> TransformerConfig:
         d_ff=96,
         vocab=512,
         moe_experts=8,
+        remat=False,
     )

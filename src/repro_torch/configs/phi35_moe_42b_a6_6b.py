@@ -39,4 +39,5 @@ def smoke_config() -> TransformerConfig:
         d_ff=128,
         vocab=256,
         moe_experts=4,
+        remat=False,
     )

@@ -36,4 +36,5 @@ def smoke_config() -> TransformerConfig:
         d_ff=192,
         vocab=512,
         qkv_bias=True,
+        remat=False,
     )

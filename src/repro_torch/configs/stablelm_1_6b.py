@@ -34,4 +34,5 @@ def smoke_config() -> TransformerConfig:
         d_head=16,
         d_ff=160,
         vocab=512,
+        remat=False,
     )

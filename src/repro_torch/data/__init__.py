@@ -1,2 +1,2 @@
 """Input streams of the port (host numpy, seeded)."""
-from . import recsys  # noqa: F401
+from . import tokens, recsys  # noqa: F401

@@ -1,4 +1,5 @@
-"""The port's ``distributed/``: fault tolerance for the training loop and the
-SPMD data plane (``spmd_runtime``). ``hub_gather`` and ``sharding`` come with
-a later slice."""
-from . import fault_tolerance, spmd_runtime  # noqa: F401
+"""The port's ``distributed/``: fault tolerance for the training loop, the
+hub-replication gather (``hub_gather``) and the SPMD data plane
+(``spmd_runtime``). The reference's ``sharding`` (mesh ``PartitionSpec``
+rules) has no counterpart on one card."""
+from . import hub_gather, fault_tolerance, spmd_runtime  # noqa: F401

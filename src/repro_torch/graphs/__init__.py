@@ -1,1 +1,1 @@
-from . import rmat, datasets  # noqa: F401
+from . import rmat, datasets, sampler  # noqa: F401

@@ -2,8 +2,9 @@
 kernels of B8 and their wrapper. Its plain torch version is
 ``models.attention.flash_attention_torch``, the same blocked online softmax.
 
-The LM's long-prompt attention (``models/transformer.py`` takes it at
-``s >= cfg.flash_cutoff``), in the GQA layout of the model:
+The LM's long-prompt attention in prefill (``models/transformer.py`` takes
+it at ``s >= cfg.flash_cutoff``; training takes the plain version, which is
+differentiable), in the GQA layout of the model:
 
   in:   q [B, S, K, G, dh], k/v [B, T, K, dh] — fp32, bf16 or fp16, all one
         dtype; any strides whose last one is 1 (else it raises, on either
@@ -159,8 +160,13 @@ def flash_attention_gqa(q, k, v, *, scale, causal=True, window=0,
     ``[B,S,K,G,dh]`` in q's dtype, on the tensors' device. On the card:
     the ``wgmma`` kernel for bf16/fp16 at dh 64 and 128, the ``fma`` kernel
     for fp32 and dh 256 (``variant``). Launches on the current stream and
-    does not synchronise."""
+    does not synchronise. The kernels have no backward (nor has the
+    reference's): an input that requires grad raises, on either device."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_gqa has no backward: training takes "
+            "models.attention.flash_attention_torch")
     if window < 0 or softcap < 0:
         raise ValueError(f"window {window} and softcap {softcap} must be >= 0")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:

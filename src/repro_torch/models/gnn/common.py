@@ -44,7 +44,11 @@ __all__ = [
 #   node_mask [N], (optional) graph_ids [N], labels, label_mask
 GraphBatch = Dict[str, torch.Tensor]
 
-EDGE_KEYS = ("edge_src", "edge_dst", "edge_mask")
+# a batch's edge arrays, destinations first; a hub-split batch (GAT) has
+# two streams of them
+EDGE_KEYS = ("edge_dst", "edge_src", "edge_mask")
+SPLIT_EDGE_KEYS = (("edge_dst_cold", "edge_src_cold", "edge_mask_cold"),
+                   ("edge_dst_hot", "edge_src_hub_pos", "edge_mask_hot"))
 
 
 def gather_src(node_feat: torch.Tensor, edge_src: torch.Tensor):
@@ -52,14 +56,18 @@ def gather_src(node_feat: torch.Tensor, edge_src: torch.Tensor):
 
 
 def sort_edges_by_dst(batch: GraphBatch) -> GraphBatch:
-    """The batch with its edges in ascending ``edge_dst`` order: one stable
+    """The batch with its edges in ascending destination order: one stable
     sort on the batch's device, every per-edge array carried through the
-    same permutation. Nodes keep their order, so outputs stay in node
-    order; sums over a node's edges change only their fp32 order."""
-    perm = torch.sort(batch["edge_dst"], stable=True).indices
+    same permutation. A hub-split batch has two edge streams (cold and
+    hot, ``SPLIT_EDGE_KEYS``): each is sorted by its own destinations.
+    Nodes keep their order, so outputs stay in node order; sums over a
+    node's edges change only their fp32 order."""
+    groups = SPLIT_EDGE_KEYS if "edge_src_cold" in batch else (EDGE_KEYS,)
     out = dict(batch)
-    for k in EDGE_KEYS:
-        out[k] = batch[k][perm]
+    for keys in groups:
+        perm = torch.sort(batch[keys[0]], stable=True).indices
+        for k in keys:
+            out[k] = batch[k][perm]
     return out
 
 

@@ -1,32 +1,39 @@
-"""Decoder-only LM transformer: the serving half of
-``repro.models.transformer`` (prefill and greedy decode) for the dense LM
-architectures.
+"""Decoder-only LM transformer, the counterpart of
+``repro.models.transformer`` for the dense LM architectures: training
+(``forward_train``, ``loss_fn``), prefill and greedy decode.
 
 One config-driven implementation, as in the reference:
   - GQA attention (any H/K ratio), RoPE, optional QKV bias (qwen2.5)
   - alternating local (sliding-window) / global layers, attention and final
     logit soft-capping, post-norms, zero-centred RMSNorm (gemma2)
   - SwiGLU MLP (the MoE FFN is not ported yet: an ``is_moe`` config raises)
-  - prefill (builds the KV cache) and decode (one token against a
-    ring-buffer KV cache; local layers cache only the window).
+  - train (full-sequence logits; with ``remat`` each block of the pattern
+    is recomputed in the backward pass, as the reference's
+    ``jax.checkpoint``), prefill (builds the KV cache) and decode (one token
+    against a ring-buffer KV cache; local layers cache only the window),
+    sharing the same layer code.
 
 Parameters are a dictionary in the reference's pytree layout: weights in
 ``[in, out]`` (so ``x @ w`` as there), and the layers of each block-pattern
 entry stacked over ``n_blocks`` under ``params["layers"]["sub{i}_{kind}"]``.
 ``params_from_reference`` copies the reference's initialised pytree across.
-The config keeps the reference's fields that serving reads. Left out: the
-mesh knobs (``AxisRules``, ``moe_impl``, ``moe_shard_capacity``), which have
-no counterpart on one device; the MoE routing knobs (``moe_top_k``,
-``moe_capacity``) and ``remat``, which wait for the MoE and training
-slices; and ``flash_block``, since B8 picks its own tiles.
-Layers run in a Python loop (the reference's ``scan``); the KV cache is
-updated in place (the reference returns a new one).
+The config keeps the reference's fields but the mesh knobs (``AxisRules``,
+``moe_impl``, ``moe_shard_capacity``), which have no counterpart on one
+device, and the MoE routing knobs (``moe_top_k``, ``moe_capacity``), which
+wait for the MoE slice. Layers run in a Python loop (the reference's
+``scan``); the KV cache is updated in place (the reference returns a new
+one).
 
-At ``s >= cfg.flash_cutoff`` prefill attention goes through
-``kernels.ops.flash_attention_gqa``: the hand-written kernel B8 on the card,
-its plain version on the CPU. Below it the dense path runs, which — as in
-the reference — casts the softmax weights to ``v``'s dtype before the
-product with ``v``; the flash path does not.
+At ``s >= cfg.flash_cutoff`` attention takes the flash path. In prefill it
+goes through ``kernels.ops.flash_attention_gqa``: the hand-written kernel
+B8 on the card, its plain version on the CPU. B8 has no backward (nor has
+the reference's Pallas kernel), so training runs the blocked online
+softmax ``models.attention.flash_attention_torch`` in blocks of
+``cfg.flash_block``, as the reference trains through
+``flash_attention_jnp``; B8's wrapper refuses a tensor that requires grad.
+Below the cutoff the dense path runs, which — as in the reference — casts
+the softmax weights to ``v``'s dtype before the product with ``v``; the
+flash path does not.
 """
 from __future__ import annotations
 
@@ -36,14 +43,19 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from .common import apply_rope, rms_norm, rope_table, silu, softcap, trunc_normal
+from .attention import flash_attention_torch
+from .common import (apply_rope, cross_entropy_loss, rms_norm, rope_table,
+                     silu, softcap, trunc_normal)
 
 __all__ = [
     "TransformerConfig",
     "init_params",
     "params_from_reference",
+    "forward_train",
+    "loss_fn",
     "forward_prefill",
     "forward_decode",
     "init_kv_cache",
@@ -73,9 +85,11 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     query_scale: Optional[float] = None  # None -> 1/sqrt(d_head)
     tie_embeddings: bool = False
-    # prompt length at/above which prefill attention takes the flash path
-    # (kernel B8)
+    remat: bool = True  # training recomputes each block in the backward
+    # sequence length at/above which attention takes the flash path (kernel
+    # B8 in prefill), and the blocks of the training flash path
     flash_cutoff: int = 8192
+    flash_block: int = 1024
 
     @property
     def pattern(self) -> Tuple[str, ...]:
@@ -291,8 +305,11 @@ def _block(stacked: Dict[str, torch.Tensor], blk: int):
     return {name: t[blk] for name, t in stacked.items()}
 
 
-def _layer(x, p, kind: str, cfg: TransformerConfig, sin, cos):
-    """Full-sequence layer (prefill). x: [B,S,d] -> (x, (k, v))."""
+def _layer(x, p, kind: str, cfg: TransformerConfig, sin, cos, *,
+           train: bool = False):
+    """Full-sequence layer (train / prefill). x: [B,S,d] -> (x, (k, v)).
+    At the flash cutoff ``train`` takes the differentiable blocked softmax,
+    prefill kernel B8."""
     b, s, d = x.shape
     h = _norm(x, p["attn_norm"], cfg)
     q, k, v = _qkv(h, p, cfg)
@@ -300,10 +317,14 @@ def _layer(x, p, kind: str, cfg: TransformerConfig, sin, cos):
     k = apply_rope(k, sin, cos)
     if s >= cfg.flash_cutoff:
         kh = cfg.n_kv_heads
-        ctx = ops.flash_attention_gqa(
-            q.reshape(b, s, kh, cfg.n_heads // kh, cfg.d_head), k, v,
-            scale=_scale(cfg), causal=True, window=cfg.window_for(kind),
-            softcap=cfg.attn_softcap)
+        q5 = q.reshape(b, s, kh, cfg.n_heads // kh, cfg.d_head)
+        kw = dict(scale=_scale(cfg), causal=True, window=cfg.window_for(kind),
+                  softcap=cfg.attn_softcap)
+        if train:
+            ctx = flash_attention_torch(q5, k, v, block_q=cfg.flash_block,
+                                        block_k=cfg.flash_block, **kw)
+        else:
+            ctx = ops.flash_attention_gqa(q5, k, v, **kw)
         attn = ctx.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
     else:
         scores = _attn_scores(q, k, cfg)
@@ -317,6 +338,42 @@ def _layer(x, p, kind: str, cfg: TransformerConfig, sin, cos):
     if cfg.post_norms:
         y = _norm(y, p["ffn_post_norm"], cfg)
     return x + y, (k, v)
+
+
+# --------------------------------------------------------------------------
+# train forward (a Python loop over blocks, each recomputed under remat)
+# --------------------------------------------------------------------------
+def _train_block(x, block_params, cfg: TransformerConfig, sin, cos):
+    for i, kind in enumerate(cfg.pattern):
+        x, _ = _layer(x, block_params[f"sub{i}_{kind}"], kind, cfg, sin, cos,
+                      train=True)
+    return x
+
+
+def forward_train(params, tokens, cfg: TransformerConfig):
+    """``tokens [B, S]`` -> logits ``[B, S, V]``. With ``cfg.remat`` each
+    block of the pattern keeps only its input for the backward pass and is
+    run again there (``torch.utils.checkpoint``, non-reentrant)."""
+    _dense_only(cfg)
+    s = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    sin, cos = rope_table(torch.arange(s, device=tokens.device), cfg.d_head,
+                          cfg.rope_theta)
+    for blk in range(cfg.n_blocks):
+        bp = {key: _block(stacked, blk)
+              for key, stacked in params["layers"].items()}
+        if cfg.remat:
+            x = checkpoint(_train_block, x, bp, cfg, sin, cos,
+                           use_reentrant=False)
+        else:
+            x = _train_block(x, bp, cfg, sin, cos)
+    x = _norm(x, params["final_norm"], cfg)
+    return _unembed(params, x, cfg)
+
+
+def loss_fn(params, tokens, labels, cfg: TransformerConfig):
+    """Mean token cross-entropy of ``forward_train``'s logits."""
+    return cross_entropy_loss(forward_train(params, tokens, cfg), labels)
 
 
 # --------------------------------------------------------------------------

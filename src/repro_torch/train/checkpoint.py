@@ -5,12 +5,16 @@
   (the reference's keys: ``params/layers/#0/mlp/#0/w``,
   ``opt_state/mu/...``) plus a JSON manifest (step, time, the caller's
   meta) — no pickle. The reference writes its manifest with msgpack; the
-  port writes JSON and needs no package beyond numpy and torch.
+  port writes JSON and needs no package beyond numpy and torch. A bf16
+  leaf is stored as 2-byte void values holding its bits (``|V2``, the form
+  numpy gives the reference's bfloat16 arrays), and restored onto a device
+  as bf16 with the same bits.
 - **restart-safe**: writes go to a temp dir + atomic rename; the manager
   keeps the last K checkpoints and a ``latest`` pointer.
 - **restore onto a device**: ``restore(..., device=)`` puts the leaves on
   that device (the reference's ``shardings=`` re-shards onto a mesh);
-  without it the leaves come back as numpy arrays, as the reference's do.
+  without it the leaves come back as numpy arrays, as the reference's do
+  (bf16 leaves as their stored ``|V2`` arrays).
 - **async**: ``save_async`` copies the leaves to host memory at once and
   writes them to disk on a background thread.
 """
@@ -32,13 +36,32 @@ from ..tree import tree_map, tree_paths, tree_unflatten
 __all__ = ["CheckpointManager", "flatten_tree", "unflatten_tree"]
 
 
+# numpy has no bfloat16: a bf16 leaf is stored as its raw 2-byte values,
+# the way numpy writes the reference's (ml_dtypes) bfloat16 arrays
+BF16_STORED = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
     """A host copy of the leaf, never a view: a tensor changed in place
-    after a snapshot must not change the snapshot."""
+    after a snapshot must not change the snapshot. A bf16 tensor becomes
+    an array of ``BF16_STORED`` holding its bits."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
-        return leaf.cpu().numpy() if leaf.is_cuda else leaf.numpy().copy()
+        bf16 = leaf.dtype == torch.bfloat16
+        if bf16:
+            leaf = leaf.view(torch.int16)
+        a = leaf.cpu().numpy() if leaf.is_cuda else leaf.numpy().copy()
+        return a.view(BF16_STORED) if bf16 else a
     return np.array(leaf)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A stored array as a tensor on ``device``; ``BF16_STORED`` arrays as
+    bf16 with the stored bits."""
+    if a.dtype == BF16_STORED:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def flatten_tree(tree) -> Dict[str, np.ndarray]:
@@ -124,5 +147,5 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             meta = json.load(f)
         if device is not None:
-            tree = tree_map(lambda a: torch.from_numpy(a).to(device), tree)
+            tree = tree_map(lambda a: _tensor(a, device), tree)
         return tree, meta

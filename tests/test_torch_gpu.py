@@ -430,6 +430,140 @@ def test_mace_train_step_on_card():
     np.testing.assert_allclose(kernel, plain, rtol=1e-4, atol=0)
 
 
+def _card_and_cpu_steps(make_step, params, batches):
+    """The same functional train step from the same parameters on the CPU
+    and on the card: (CPU losses, card losses, CPU params, card params)."""
+    from repro_torch.tree import tree_map
+
+    out = []
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        step, optim = make_step()
+        state = optim.init(p)
+        losses = []
+        for b in batches:
+            p, state, m = step(p, state, {k: torch.as_tensor(v, device=dev)
+                                          for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        out.append((losses, p))
+    (l_cpu, p_cpu), (l_card, p_card) = out
+    return l_cpu, l_card, p_cpu, p_card
+
+
+def _assert_leaves_close(p_cpu, p_card, rel):
+    from repro_torch.tree import tree_leaves
+
+    for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_card)):
+        b = b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = float((a - b).norm() / max(float(a.norm()), 1e-30))
+        assert err <= rel, err
+
+
+@pytest.mark.gpu
+def test_lm_train_step_on_card_matches_cpu():
+    """Three steps of the LM train step (stablelm's smoke config in fp32,
+    remat on, 2 microbatches, the launcher's optimizer) on the card and on
+    the CPU from the same parameters: losses and parameters to 1e-5
+    relative (fp32 GEMMs in another order; TF32 off, asserted)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = dataclasses.replace(get_arch("stablelm-1.6b").smoke_config(),
+                              dtype=torch.float32, remat=True)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    stream = TokenStream(cfg.vocab, 4, 64, seed=1)
+
+    def make_step():
+        o = opt.adamw(lr=opt.cosine_schedule(3e-4, 2, 3))
+        return tl.make_lm_train_step(cfg, o, n_microbatches=2), o
+
+    l_cpu, l_card, p_cpu, p_card = _card_and_cpu_steps(
+        make_step, params, [stream.batch_at(i) for i in range(3)])
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+    _assert_leaves_close(p_cpu, p_card, 1e-5)
+
+
+@pytest.mark.gpu
+def test_din_train_step_on_card_matches_cpu():
+    """Three steps of the DIN train step (smoke config, the launcher's
+    optimizer) on the card and on the CPU from the same parameters:
+    losses and parameters to 1e-5 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.models.recsys import din
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = get_arch("din").smoke_config()
+    params = din.init_params(cfg, torch.Generator().manual_seed(0))
+    stream = CTRStream(cfg.n_items, cfg.n_cats, 128, seq_len=cfg.seq_len,
+                       d_profile=cfg.d_profile, seed=2)
+
+    def make_step():
+        o = opt.adamw(lr=1e-3, weight_decay=0.0)
+        return tl.make_recsys_train_step(din.apply, cfg, o), o
+
+    l_cpu, l_card, p_cpu, p_card = _card_and_cpu_steps(
+        make_step, params, [stream.batch_at(i) for i in range(3)])
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5)
+    _assert_leaves_close(p_cpu, p_card, 1e-5)
+
+
+@pytest.mark.gpu
+def test_gat_hub_split_on_card():
+    """GAT's smoke batch split into cold and hot streams (6 hub sources)
+    on the card: three launcher steps on the kernel route (B9 8 times a
+    step: 4 a layer) against the plain route and against the unsplit
+    batch, every loss within rel 1e-4 (B9's fp32 summation order only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    from hub_split import hub_split_batch
+    from repro_torch.configs.inputs import make_smoke_batch
+    from repro_torch.kernels import segment_sum_sorted as ss
+    from repro_torch.launch.train import wire_gnn
+
+    cfg, raw = make_smoke_batch("gat-cora", "gnn_train",
+                                np.random.default_rng(0))
+    split = hub_split_batch(raw, 6)
+
+    def run(batch):
+        params, optim, step, data_fn = wire_gnn("gat-cora", cfg, batch, 0,
+                                                "cuda")
+        state = optim.init(params)
+        losses = []
+        for s in range(3):
+            params, state, m = step(params, state, data_fn(s))
+            losses.append(float(m["loss"]))
+        return losses
+
+    ss.reset_launches()
+    kernel = run(split)
+    assert ss.launches() == 3 * 8
+    unsplit = run(raw)
+    assert ss.launches() == 3 * 8 + 3 * 4
+    real = ops.segment_sum_sorted
+    ops.segment_sum_sorted = ss.segment_sum_sorted_ref
+    try:
+        plain = run(split)
+    finally:
+        ops.segment_sum_sorted = real
+    assert all(np.isfinite(kernel))
+    np.testing.assert_allclose(kernel, plain, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(kernel, unsplit, rtol=1e-4, atol=0)
+
+
 def _hub_problem(p, n_rounds, cache_rows, seed):
     """Five hubs adjacent to every live vertex (hub x hub pairs), random
     edges, 4 isolated vertices; the compiled problem of ``p`` ranks."""

@@ -72,7 +72,8 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.configs.paper_lcc",
     "repro_torch.configs.moonshot_v1_16b_a3b",
     "repro_torch.configs.phi35_moe_42b_a6_6b",
-    "repro_torch.data.recsys",
+    "repro_torch.data.recsys", "repro_torch.data.tokens",
+    "repro_torch.graphs.sampler", "repro_torch.distributed.hub_gather",
     "repro_torch.models.common", "repro_torch.models.attention",
     "repro_torch.models.transformer", "repro_torch.models.recsys.embedding",
     "repro_torch.models.recsys.din", "repro_torch.train.train_loop",
