@@ -12,10 +12,12 @@ stated tolerances), drives the port's paths — the paper's LCC
 pipeline, the streaming path with the device tier, online graph query
 serving with its traffic plane, the SPMD data plane (the stream and query
 serving with ``--spmd --pipeline``), serving (gemma2-27b prefill + decode,
-DIN scoring), GNN training (gin-tu at ogb_products' size, MACE at
-molecule's, GAT's hub split at ogb_products' nodes), LM training
-(stablelm-1.6b at its published width, sequence 4,096) and DIN training
-(its published config) — through their public entry points, checks the
+DIN scoring, the MoE LMs moonshot-v1-16b-a3b at its published config and
+phi3.5-moe at its published width), GNN training (gin-tu at ogb_products'
+size, MACE at molecule's, GAT's hub split at ogb_products' nodes), LM
+training (stablelm-1.6b at its published width, sequence 4,096; moonshot
+at its published width, 1 layer) and DIN training (its published config)
+— through their public entry points, checks the
 port's own observability artifacts with the port's validator, and fails
 (non-zero exit) if any phase fails. Each phase prints one
 JSON object on a line of its own, with ``phase_wall_s``, the seconds since
@@ -141,6 +143,23 @@ the previous phase's line:
            (the launcher's mean of 3 batches, and 200 batches timed one by
            one: median, p99, min, max); ``bag_fixed`` on the batch's
            history ids (through B10) held against its plain version
+  serve_moe ``serve.main`` on moonshot-v1-16b-a3b at its published config
+           (48 layers, d_model 2,048, 64 experts of d_ff 1,408, top 6, vocab
+           163,840, bf16: 56.1 GB of weights), a prompt of 8,192 tokens,
+           batch 1, 16 greedy tokens (48 B8 launches, all of the wgmma
+           kernel; finite logits): prefill ms, decode ms/token, peak
+           memory; a second prefill with CUDA events around each MoE step
+           (routing, dispatch tables, token gather, expert GEMMs,
+           combine), a profiled one (B8, GEMMs, the rest; idle share) and
+           4 profiled decode steps; then one MoE layer at its published
+           width on a seeded [8,192, 2,048] input: expert ids, gates,
+           ``keep``, ``slot``, ``disp_tok``, ``disp_gate`` bit-equal to a
+           numpy mirror of the reference's dispatch on the host, the output
+           within rel L2 2e-2 of a plain fp32 formulation, two calls equal
+           bit for bit, its time, and the drops of 16 decode steps at batch
+           4; then phi3.5-moe at its published width with its depth cut to
+           24 layers (32 hold 83.7 GB of weights): prefill 8,192 x 1 and
+           16 decode tokens (24 B8 launches)
   train_gnn ``repro_torch.launch.train.main`` on gin-tu, gat-cora, pna
            and mace (the reference's smoke batch, 20 steps each; B9 4 / 4 /
            11 / 23 times a step), then gin-tu's published config (5 layers,
@@ -177,6 +196,14 @@ the previous phase's line:
            on the CPU from the same parameters, losses and parameters
            within 1e-5 relative; B8 never launched (training runs its
            differentiable plain version)
+  train_moe ``repro_torch.launch.train.main --smoke`` on both MoE LMs (10
+           steps); moonshot-v1-16b-a3b at its published width with its
+           depth cut to 1 layer, sequence 4,096, batch 4 in 2 microbatches,
+           the launcher's optimizer: 1 warm-up + 5 timed steps (ms/step,
+           tokens/s, model FLOP/s on the active parameters, peak memory),
+           one profiled step; both smoke configs in fp32 (TF32 off) for 3
+           steps on the card and on the CPU, within 1e-5 relative; B8
+           never launched
   train_din ``repro_torch.launch.train.main`` on DIN's published config
            (10 steps); the cell din x train_batch (65,536 ``CTRStream``
            requests a batch, the 10^8 x 18 item table on the card): 1
@@ -233,7 +260,8 @@ from the wrappers' counters, set to 0 just before each path (``entry``
 through ``pairs``; ``stream``; ``stream_routes``; each run of
 ``query_serve``; each run of ``spmd``, less the launches its checks add;
 the 8,192-token
-``serve_lm`` run; ``serve_din``; each launcher run and each cell's kernel
+``serve_lm`` run; each 8,192-token prefill's run in ``serve_moe``;
+``serve_din``; each launcher run and each cell's kernel
 route in ``train_gnn``, the hub-split cells' too) and read just after
 it; launches made by
 ``checks`` and ``timing`` are not in them, except for B2, whose only path is
@@ -429,6 +457,38 @@ LM_PARITY_STEPS = 3
 # the card's fp32 train steps against the CPU's: the CPU parity tests'
 # tolerance (tests/test_torch_lm_train.py), relative
 PARITY_RTOL = 1e-5
+# MoE serving (phase serve_moe): moonshot-v1-16b-a3b through the serve
+# launcher at its published config (48 layers, d_model 2,048, 64 experts of
+# d_ff 1,408, top 6, vocab 163,840, bf16: 56.1 GB of weights), a prompt of
+# 8,192 tokens (B8 once a layer), batch 1, 16 greedy tokens; its MoE layer
+# alone on a seeded [8,192, 2,048] input; phi3.5-moe at its published width
+# with its depth cut from 32 to 24 layers (32 hold 83.7 GB of weights, more
+# than the card's 80; 24 hold ~63 GB)
+MOE_ARGV = ["--arch", "moonshot-v1-16b-a3b", "--prompt", "8192", "--batch",
+            "1", "--tokens", "16"]
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 24
+MOE_DECODE_BATCH = 4  # the serve launcher's default batch: c = 1
+MOE_DROP_STEPS = 16  # decode steps of MOE_DECODE_BATCH tokens counted
+# the MoE layer's bf16 output against a plain fp32 formulation (each
+# expert's kept tokens times their gates, summed): relative L2. bf16 rounds
+# the two up-projections, their SwiGLU product, the down-projection, the
+# gated rows and each of the k running sums (2^-9 relative each); ~1% in
+# L2 at most, so 2e-2 leaves twice that
+MOE_REL_TOL = 2e-2
+# MoE training (phase train_moe): the launcher's --smoke runs of both MoE
+# LMs; moonshot at its published width with its depth cut from 48 to 1
+# layer (48 layers with fp32 moments and the fp32 gradient buffer are ~340
+# GB; on the card 4 layers ran out of its 80 GB in a step's forward, 70.25
+# GiB allocated, and 2 layers in a backward, 60.79 GiB allocated and 13.72
+# reserved but free, asking 5 GiB for the fp32 gradient of the [2, 4,096,
+# 163,840] logits: each layer holds 8 GB of weights, moments and fp32
+# gradient buffer, the 163,840-word head ~20 GB of a microbatch's
+# activations), at train_4k's sequence of 4,096, batch 4 in
+# 2 microbatches (as train_lm's cell); then each smoke config in fp32 on the
+# card against the CPU
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b")
+MOE_TRAIN_LAYERS = 1
 # recsys training (phase train_din): the launcher on DIN's published
 # config; the cell din x train_batch (65,536 requests, 10^8 x 18 item
 # table on the card; not cut); retrieval at retrieval_cand with the
@@ -1404,6 +1464,345 @@ def phase_serve_lm(np, torch):
         b8_launches
 
 
+def moe_region_ms(run, torch):
+    """``run()`` with CUDA events around each MoE step (``moe_route``,
+    ``moe_dispatch``, the token gather, the expert GEMMs, the combine) on
+    the current stream, no sync inside: (device ms from each step's first
+    launch to its last, summed over its calls; calls; host-clock window
+    ms, ending in ``synchronize``)."""
+    from repro_torch.models import moe
+
+    steps = {"route": "moe_route", "dispatch_tables": "moe_dispatch",
+             "dispatch_gather": "_gather_tokens", "expert_gemms": "_experts",
+             "combine": "_combine"}
+    real = {k: getattr(moe, name) for k, name in steps.items()}
+    marks = {k: [] for k in steps}
+
+    def timed(key):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[key](*a, **kw)
+            stop.record()
+            marks[key].append((start, stop))
+            return out
+        return call
+
+    for key, name in steps.items():
+        setattr(moe, name, timed(key))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for key, name in steps.items():
+            setattr(moe, name, real[key])
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+    return ms, {k: len(v) for k, v in marks.items()}, window_ms, out
+
+
+def numpy_dispatch(probs, k, c, np):
+    """A numpy mirror of the reference's routing and dispatch
+    (``src/repro/models/moe.py:59-86``) from the router's fp32
+    probabilities ``[T, E]``: top k by a stable sort (the lower index
+    first among ties), gates renormalised by a left-to-right sum, then the
+    tables. Returns a dict of numpy arrays."""
+    t, e = probs.shape
+    ids = np.argsort(-probs, axis=-1, kind="stable")[:, :k].astype(np.int32)
+    vals = np.take_along_axis(probs, ids, -1)
+    total = vals[:, :1].copy()
+    for j in range(1, k):
+        total = total + vals[:, j:j + 1]
+    gates = vals / np.maximum(total, np.float32(1e-9))
+    flat_e = ids.reshape(-1)
+    order = np.argsort(flat_e, kind="stable").astype(np.int32)
+    sorted_e = flat_e[order]
+    counts = np.bincount(sorted_e, minlength=e).astype(np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    pos = np.arange(t * k, dtype=np.int32) - starts[sorted_e]
+    keep = pos < c
+    slot = np.where(keep, sorted_e * c + pos, e * c).astype(np.int32)
+    tok = (order // k).astype(np.int32)
+    disp_tok = np.full(e * c + 1, t, np.int32)
+    disp_tok[slot] = np.where(keep, tok, t)
+    disp_gate = np.zeros(e * c + 1, np.float32)
+    disp_gate[slot] = np.where(keep, gates.reshape(-1)[order], 0.0)
+    return {"expert_ids": ids, "gates": gates.astype(np.float32),
+            "keep": keep, "slot": slot, "disp_tok": disp_tok,
+            "disp_gate": disp_gate}
+
+
+def check_moe_layer(dev, np, torch, cfg):
+    """One MoE layer of ``cfg`` (its published width) on a seeded
+    ``[8,192, d]`` bf16 input: the port's expert ids, ``keep``, ``slot``,
+    ``disp_tok`` and ``disp_gate`` bit-equal to ``numpy_dispatch`` on the
+    host from the same probabilities; its output against a plain fp32
+    formulation on the card (each expert's kept tokens through its SwiGLU
+    in fp32, times their gates, summed) within ``MOE_REL_TOL``; two calls
+    bit-equal; its time by CUDA events and by step; the drops of
+    ``MOE_DROP_STEPS`` decode steps of ``MOE_DECODE_BATCH`` tokens."""
+    from repro_torch.models import moe
+    from repro_torch.obs.timing import min_ms
+
+    e, k, d, f = cfg.moe_experts, cfg.moe_top_k, cfg.d_model, cfg.d_ff
+    t = 8192
+    gen = torch.Generator(dev).manual_seed(7)
+    p = moe.moe_init(gen, d, f, e, cfg.dtype)
+    x = torch.randn((t, d), generator=gen, device=dev).to(cfg.dtype)
+    c = moe.capacity(cfg.moe_capacity, t, k, e)
+    with torch.inference_mode():
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        gates, ids = moe.top_k_gates(probs, k)
+        tables = moe.moe_dispatch(ids.reshape(-1), gates, n_local=e, c=c,
+                                  k=k)
+        y = moe.moe_apply(p, x, n_experts=e, top_k=k,
+                          capacity_factor=cfg.moe_capacity)
+        again = moe.moe_apply(p, x, n_experts=e, top_k=k,
+                              capacity_factor=cfg.moe_capacity)
+    host = numpy_dispatch(probs.cpu().numpy(), k, c, np)
+    got = {"expert_ids": ids, "gates": gates, "keep": tables["keep"],
+           "slot": tables["slot"], "disp_tok": tables["disp_tok"],
+           "disp_gate": tables["disp_gate"]}
+    unequal = [name for name, want in host.items()
+               if not (got[name].cpu().numpy().dtype == want.dtype
+                       and np.array_equal(got[name].cpu().numpy(), want))]
+    if unequal:
+        raise RuntimeError(f"serve_moe: tables {unequal} differ from the "
+                           f"host mirror")
+    if not torch.equal(y.view(torch.int16), again.view(torch.int16)):
+        raise RuntimeError("serve_moe: two calls of the MoE layer differ")
+    # the plain formulation, from the host mirror's tables, in fp32
+    disp_tok = torch.from_numpy(host["disp_tok"][:e * c]).to(dev).long()
+    disp_gate = torch.from_numpy(host["disp_gate"][:e * c]).to(dev)
+    plain = torch.zeros((t, d), dtype=torch.float32, device=dev)
+    xf = x.float()
+    with torch.inference_mode():
+        for ex in range(e):
+            rows = disp_tok[ex * c:(ex + 1) * c]
+            live = rows < t
+            toks, g = rows[live], disp_gate[ex * c:(ex + 1) * c][live]
+            h = xf[toks]
+            h = (torch.nn.functional.silu(h @ p["w_gate"][ex].float())
+                 * (h @ p["w_up"][ex].float())) @ p["w_down"][ex].float()
+            plain.index_add_(0, toks, h * g[:, None])
+    diff = y.float() - plain
+    rel = float(diff.norm() / plain.norm())
+    if not rel <= MOE_REL_TOL:
+        raise RuntimeError(f"serve_moe: the MoE layer is {rel} from the "
+                           f"plain formulation (tolerance {MOE_REL_TOL})")
+
+    def layer():
+        with torch.inference_mode():
+            moe.moe_apply(p, x, n_experts=e, top_k=k,
+                          capacity_factor=cfg.moe_capacity)
+
+    layer_ms = min_ms(layer, reps=10, warmup=2)
+    steps_ms, calls, window_ms, _ = moe_region_ms(layer, torch)
+    # decode at the launcher's default batch: MOE_DECODE_BATCH tokens a step
+    n = MOE_DECODE_BATCH
+    c_dec = moe.capacity(cfg.moe_capacity, n, k, e)
+    with torch.inference_mode():
+        _, dec_ids = moe.moe_route(p["router"], x[:n * MOE_DROP_STEPS], k)
+    counts = np.stack([np.bincount(step.reshape(-1), minlength=e)
+                       for step in dec_ids.cpu().numpy().reshape(
+                           MOE_DROP_STEPS, n, k)])
+    dropped = np.maximum(counts - c_dec, 0).sum(1)
+    kept = host["keep"]
+    flops = 2.0 * 3 * e * c * d * f
+    return {"shape": [t, d], "experts": e, "top_k": k, "capacity": c,
+            "slots": e * c, "assignments": t * k,
+            "dropped_assignments": int((~kept).sum()),
+            "tables_bit_equal_to_host_mirror": list(host),
+            "plain_rel_l2": rel, "tolerance": MOE_REL_TOL,
+            "max_abs_err": float(diff.abs().max()),
+            "two_calls_bit_equal": True, "ms": layer_ms,
+            "expert_gemm_tflops_per_s": flops / (steps_ms["expert_gemms"]
+                                                 / calls["expert_gemms"])
+            / 1e9,
+            "steps_device_ms": steps_ms, "steps_window_ms": window_ms,
+            "decode_drops": {
+                "batch": n, "capacity": c_dec, "steps": MOE_DROP_STEPS,
+                "assignments_a_step": n * k,
+                "dropped_a_step": dropped.tolist(),
+                "dropped_share": float(dropped.sum()
+                                       / (MOE_DROP_STEPS * n * k))}}
+
+
+def phase_serve_moe(dev, np, torch):
+    """MoE serving on the card: (a) moonshot-v1-16b-a3b at its published
+    config through ``repro_torch.launch.serve`` (``MOE_ARGV``: B8 once a
+    layer, all of the wgmma kernel; finite last-token logits), a second
+    prefill split by MoE step (``moe_region_ms``), a profiled one split by
+    kernel (B8, GEMMs, the rest; idle share) and 4 profiled decode steps;
+    (b) its MoE layer alone (``check_moe_layer``); (c) phi3.5-moe at its
+    published width cut to ``PHI_LAYERS`` layers, prefill 8,192 x 1 and 16
+    decode tokens (B8 once a layer). Each model is freed before the next is
+    drawn. Returns (phase record, B8 launches by run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import train_loop as tl
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise RuntimeError("serve_moe: the fp32 router must not run in TF32")
+    rec = {"phase": "serve_moe"}
+    launches = {}
+
+    # ---- (a) the main path: counters to 0, the launcher, read
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = {}
+    t0 = time.perf_counter()
+    if serve.main(MOE_ARGV, result=run) != 0:
+        raise RuntimeError(f"serve.main {MOE_ARGV} failed")
+    seconds = time.perf_counter() - t0
+    cfg = run["cfg"]
+    b8 = fa.launches()
+    by_variant = fa.launches_by_variant()
+    if b8 != cfg.n_layers or by_variant != {"wgmma": cfg.n_layers, "fma": 0}:
+        raise RuntimeError(f"serve_moe: B8 launches {by_variant}, expected "
+                           f"all {cfg.n_layers} of the wgmma kernel")
+    launches[cfg.name] = b8
+    params, prompts = run["params"], run["prompts"]
+    logits = run["prefill_logits"]
+    batch, prompt = prompts.shape
+    tokens = run["tokens"].shape[1] - 1
+    if (logits.shape != (batch, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise RuntimeError(f"serve_moe: bad logits {logits.shape}")
+    moon = {"argv": " ".join(MOE_ARGV), "seconds": seconds,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": str(cfg.dtype),
+            "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "batch": batch, "prompt": prompt, "tokens": tokens,
+            "prefill_ms": run["prefill_s"] * 1e3,
+            "decode_ms_per_token": run["decode_s"] / tokens * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "flash_attention_launches": b8,
+            "flash_attention_launches_by_variant": by_variant,
+            "first_tokens": run["tokens"][0, :8].tolist()}
+    del run, logits
+
+    n_prof = DECODE_PROFILED
+
+    def prefill():
+        with torch.inference_mode():
+            return tfm.forward_prefill(params, prompts, cfg,
+                                       max_len=prompt + n_prof)
+
+    steps_ms, calls, window_ms, (last, cache) = moe_region_ms(prefill, torch)
+    moon["prefill_ms_again"] = window_ms
+    moon["prefill_moe_steps"] = {"device_ms": steps_ms, "calls": calls,
+                                 "window_ms": window_ms}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof, torch)
+    split = split_device_time(rows)
+    if split["busy"] > window_ms:
+        raise RuntimeError("serve_moe: device busy time exceeds the window")
+    moon["profiled_prefill"] = {
+        "window_ms": window_ms, "device_ms": split,
+        "idle_share": 1.0 - split["busy"] / window_ms,
+        "top_device_kernels": rows[:12]}
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_prof):
+                tok = last.argmax(-1).to(torch.int32)
+                last, cache = tfm.forward_decode(params, tok, prompt + i,
+                                                 cache, cfg)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof, torch)
+    busy = sum(r["device_ms"] for r in rows)
+    moon["profiled_decode"] = {
+        "tokens": n_prof, "window_ms_per_token": window_ms / n_prof,
+        "device_ms_per_token": busy / n_prof,
+        "device_gemm_ms_per_token": split_device_time(rows)["gemm"] / n_prof,
+        "launches_per_token": sum(r["calls"] for r in rows) / n_prof,
+        "idle_share": 1.0 - busy / window_ms,
+        "top_device_kernels": rows[:6]}
+    rec["moonshot"] = moon
+    del params, prompts, last, cache, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) one published MoE layer alone
+    rec["moe_layer"] = check_moe_layer(dev, np, torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) phi3.5-moe at its published width, depth cut
+    full = get_arch(PHI_ARCH).config()
+    pcfg = dataclasses.replace(full, n_layers=PHI_LAYERS)
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(pcfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = 16
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, pcfg.vocab, size=(1, 8192)).astype(np.int32)).to(dev)
+    prefill = tl.make_lm_prefill_step(pcfg, max_len=8192 + tokens)
+    decode = tl.make_lm_decode_step(pcfg)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, prompts)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError("serve_moe: phi3.5 logits not finite")
+        t0 = time.perf_counter()
+        for i in range(tokens):
+            tok = logits.argmax(-1).to(torch.int32)
+            logits, cache = decode(params, tok, 8192 + i, cache)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / tokens
+    b8 = fa.launches()
+    by_variant = fa.launches_by_variant()
+    if by_variant != {"wgmma": pcfg.n_layers, "fma": 0}:
+        raise RuntimeError(f"serve_moe: phi3.5 B8 launches {by_variant}")
+    launches[f"{PHI_ARCH} ({PHI_LAYERS} layers)"] = b8
+    rec["phi35"] = {
+        "layers": pcfg.n_layers, "layers_published": full.n_layers,
+        "reduced": f"depth {full.n_layers} -> {pcfg.n_layers} layers: "
+                   f"{full.param_count() * 2 / 1e9:.1f} GB of bf16 weights "
+                   f"at 32, more than the card holds",
+        "d_model": pcfg.d_model, "experts": pcfg.moe_experts,
+        "top_k": pcfg.moe_top_k, "d_ff": pcfg.d_ff,
+        "params": pcfg.param_count(), "init_s": init_s,
+        "batch": 1, "prompt": 8192, "tokens": tokens,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "flash_attention_launches": b8,
+        "flash_attention_launches_by_variant": by_variant}
+    del params, prompts, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["flash_attention_launches"] = launches
+    rec["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    return rec, launches
+
+
 def phase_serve_din(np, torch):
     """DIN at the full config through ``repro_torch.launch.serve`` (512
     requests), then ``bag_fixed`` on the served batch's history ids through
@@ -2224,6 +2623,113 @@ def phase_train_lm(dev, np, torch):
     rec["flash_attention_launches"] = fa.launches()
     if fa.launches():
         raise RuntimeError("train_lm: training launched B8")
+    return rec
+
+
+def phase_train_moe(dev, np, torch):
+    """MoE training on the card: (a) ``launch.train.main --smoke`` on both
+    MoE LMs; (b) moonshot-v1-16b-a3b at its published width with its depth
+    cut to ``MOE_TRAIN_LAYERS``, at train_4k's sequence of 4,096, batch
+    ``LM_CELL_BATCH`` in ``LM_CELL_MICROBATCHES`` microbatches, the
+    launcher's optimizer: 1 warm-up + 5 timed steps (ms/step, tokens/s,
+    model FLOP/s on ``active_param_count``, peak memory; every loss
+    finite, the first within ``LM_FIRST_LOSS_TOL`` of ln(vocab)) and one
+    profiled step; (c) each smoke config in fp32 (TF32 off, asserted) for
+    ``LM_PARITY_STEPS`` steps on the card and on the CPU from the same
+    parameters (``card_vs_cpu``). B8 is never launched."""
+    import math
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise RuntimeError("train_moe: fp32 GEMMs must not run in TF32")
+    rec = {"phase": "train_moe"}
+    fa.reset_launches()
+    rec["launcher"] = {arch: launcher_run(["--arch", arch, "--smoke",
+                                           "--steps", "10"], np, torch)
+                       for arch in MOE_ARCHS}
+
+    arch = get_arch("moonshot-v1-16b-a3b")
+    shape = arch.shapes["train_4k"]
+    full = arch.config()
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    if not cfg.remat or cfg.dtype != torch.bfloat16:
+        raise RuntimeError(f"train_moe: published config {cfg}")
+    steps = TRAIN_STEPS
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the launcher's LM optimizer (launch/train.py::build)
+    optim = opt.adamw(lr=opt.cosine_schedule(3e-4, min(20, steps // 4 + 1),
+                                             steps))
+    step = tl.make_lm_train_step(cfg, optim,
+                                 n_microbatches=LM_CELL_MICROBATCHES)
+    stream = TokenStream(cfg.vocab, LM_CELL_BATCH, shape.seq_len, seed=0)
+
+    def data_fn(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in stream.batch_at(i).items()}
+
+    cell, params, state = timed_steps(step, data_fn, params,
+                                      optim.init(params), steps, np, torch,
+                                      tag="train_moe")
+    first = cell["losses"][0]
+    if abs(first - math.log(cfg.vocab)) > LM_FIRST_LOSS_TOL:
+        raise RuntimeError(f"train_moe: first loss {first}, ln(vocab) "
+                           f"{math.log(cfg.vocab)}")
+    tokens = LM_CELL_BATCH * shape.seq_len
+    ms = cell["ms_per_step_median"]
+    cell.update(
+        cell="moonshot-v1-16b-a3b x train_4k", seq_len=shape.seq_len,
+        global_batch=LM_CELL_BATCH, global_batch_published=shape.global_batch,
+        microbatches=LM_CELL_MICROBATCHES, layers=cfg.n_layers,
+        layers_published=full.n_layers,
+        reduced=f"depth {full.n_layers} -> {cfg.n_layers} layers; global "
+                f"batch {shape.global_batch} -> {LM_CELL_BATCH}",
+        d_model=cfg.d_model, experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        capacity_a_microbatch=moe.capacity(
+            cfg.moe_capacity,
+            LM_CELL_BATCH // LM_CELL_MICROBATCHES * shape.seq_len,
+            cfg.moe_top_k, cfg.moe_experts),
+        remat=cfg.remat, dtype=str(cfg.dtype), init_s=init_s,
+        ln_vocab=math.log(cfg.vocab), tokens_per_step=tokens,
+        tokens_per_s=tokens / ms * 1e3,
+        model_tflops_per_s=6.0 * cfg.active_param_count() * tokens / ms
+        / 1e9)
+    cell["profiled_step"], params, state = profiled_step(
+        step, params, state, data_fn(steps), TRAIN_KINDS, torch)
+    rec["cell"] = cell
+    del params, state, step, optim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec["smoke_fp32_card_vs_cpu"] = {}
+    for arch_id in MOE_ARCHS:
+        cfg32 = dataclasses.replace(get_arch(arch_id).smoke_config(),
+                                    dtype=torch.float32, remat=True)
+        p0 = tfm.init_params(cfg32, torch.Generator().manual_seed(0))
+        small = TokenStream(cfg32.vocab, 4, 64, seed=0)
+
+        def make_step(cfg32=cfg32):
+            o = opt.adamw(lr=opt.cosine_schedule(
+                3e-4, min(20, LM_PARITY_STEPS // 4 + 1), LM_PARITY_STEPS))
+            return tl.make_lm_train_step(cfg32, o, n_microbatches=2), o
+
+        rec["smoke_fp32_card_vs_cpu"][arch_id] = card_vs_cpu(
+            make_step, p0, [small.batch_at(i)
+                            for i in range(LM_PARITY_STEPS)], np, torch)
+    rec["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    rec["flash_attention_launches"] = fa.launches()
+    if fa.launches():
+        raise RuntimeError("train_moe: training launched B8")
     return rec
 
 
@@ -4315,9 +4821,14 @@ def main() -> int:
     del item_table, served
     gc.collect()
     torch.cuda.empty_cache()
+    moe_rec, b8_moe_launches = phase_serve_moe(dev, np, torch)
+    emit(moe_rec)
     train_rec, b9_launches = phase_train_gnn(dev, np, torch)
     emit(train_rec)
     emit(phase_train_lm(dev, np, torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase_train_moe(dev, np, torch))
     gc.collect()
     torch.cuda.empty_cache()
     emit(phase_train_din(dev, np, torch))
@@ -4430,7 +4941,9 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "ok": True,
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:87",
-        "launches": b8_launches,
+        "launches": b8_launches + sum(b8_moe_launches.values()),
+        "launches_serve_lm": b8_launches,
+        "launches_serve_moe": b8_moe_launches,
         "max_abs_err": fl_err, "shape": fl["global"]["shape"],
         "ms": fl["global"]["ms"], "plain_ms": fl["global"]["plain_ms"],
         "bound_ms": fl["global"]["bound_ms"],
@@ -4445,7 +4958,7 @@ def main() -> int:
                           "flash_attention_wgmma.cu",
                 "takes": "bfloat16, float16 at dh 64, 128",
                 "launches": lm_rec["flash_attention_launches_by_variant"][
-                    "wgmma"],
+                    "wgmma"] + sum(b8_moe_launches.values()),
                 "check_launches": fl_check_launches["wgmma"],
                 "ms": fl["global"]["ms"], "local_ms": fl["local"]["ms"]},
             "fma": {

@@ -2,9 +2,6 @@
 
 48L d_model=2048 16H (GQA kv=16 => MHA-width KV) d_ff=1408 vocab=163840,
 MoE 64 experts top-6. Full attention -> long_500k is a documented skip.
-
-In the port the config resolves, but its model raises
-``NotImplementedError("not ported yet: moe")``: the MoE FFN is not ported.
 """
 from ..models.transformer import TransformerConfig
 
@@ -24,6 +21,7 @@ def config() -> TransformerConfig:
         d_ff=1408,
         vocab=163840,
         moe_experts=64,
+        moe_top_k=6,
         rope_theta=50000.0,
     )
 
@@ -39,5 +37,6 @@ def smoke_config() -> TransformerConfig:
         d_ff=96,
         vocab=512,
         moe_experts=8,
+        moe_top_k=2,
         remat=False,
     )

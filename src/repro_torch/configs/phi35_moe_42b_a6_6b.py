@@ -2,9 +2,6 @@
 
 32L d_model=4096 32H (GQA kv=8) d_ff=6400 vocab=32064, MoE 16e top-2.
 Full attention -> long_500k is a documented skip.
-
-In the port the config resolves, but its model raises
-``NotImplementedError("not ported yet: moe")``: the MoE FFN is not ported.
 """
 from ..models.transformer import TransformerConfig
 
@@ -24,6 +21,7 @@ def config() -> TransformerConfig:
         d_ff=6400,
         vocab=32064,
         moe_experts=16,
+        moe_top_k=2,
         rope_theta=10000.0,
     )
 
@@ -39,5 +37,6 @@ def smoke_config() -> TransformerConfig:
         d_ff=128,
         vocab=256,
         moe_experts=4,
+        moe_top_k=2,
         remat=False,
     )

@@ -4,13 +4,20 @@
     python -m repro_torch.launch.serve --arch gemma2-27b --smoke --tokens 16
     python -m repro_torch.launch.serve --arch din --smoke
     python -m repro_torch.launch.serve --arch gemma2-27b --prompt 8192 --batch 1
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --prompt 8192 --batch 1
+    python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --smoke
 
 Runs on ``--device`` (default ``cuda``; a missing card raises — pass
 ``--device cpu`` to run the plain torch versions of the kernels). Weights
 are random, drawn from a ``torch.Generator`` seeded with 0 on the device;
 prompts and CTR batches are the reference's (numpy, seed 0). Prefill at a
 prompt of ``cfg.flash_cutoff`` (8,192) tokens or more runs attention
-through kernel B8. Every timed region ends in ``torch.cuda.synchronize()``
+through kernel B8. The MoE LMs serve through the same path: moonshot's
+published config holds 56.1 GB of bf16 weights and fits one 80 GB card;
+phi3.5-moe's (83.7 GB) does not. An MoE decode step routes the batch's B
+tokens alone, so at the default batch of 4 each expert takes one token a
+step and a second token routed to it is dropped, as in the reference.
+Every timed region ends in ``torch.cuda.synchronize()``
 on the card, as the reference's ends in ``block_until_ready``; as there,
 the prefill time includes whatever the first call builds. Prints the
 reference's lines.

@@ -25,8 +25,15 @@ seeded with ``--seed`` on the device (other draws than the reference's):
   its edges sorted by destination once, for kernel B9. ``wire_gnn`` holds
   that wiring for any config and batch.
 
+The MoE LMs (moonshot-v1-16b-a3b, phi3.5-moe-42b-a6.6b) take the lm
+branch. Without ``--smoke`` it builds the published config, as the
+reference's launcher does: for moonshot 28.06e9 parameters, 56 GB in bf16
+and with fp32 AdamW moments and the fp32 gradient buffer ~340 GB, which no
+one card holds (phi3.5 42e9 parameters does not even hold the bf16
+weights); on one card train them under ``--smoke`` or at a cut depth.
+
 The streams' numpy batches are moved to the device as the runner asks for
-them. The MoE LMs raise (their FFN is not ported yet). Runs on
+them. Runs on
 ``--device`` (default ``cuda``; a missing card raises — pass ``--device
 cpu`` to run the plain torch versions of the kernels). Prints the
 reference's line.

@@ -23,6 +23,7 @@ __all__ = [
     "apply_rope",
     "trunc_normal",
     "cross_entropy_loss",
+    "stable_top_k",
 ]
 
 
@@ -108,3 +109,19 @@ def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
         loss = loss + z_loss * torch.square(lse)
     mask = (labels >= 0).to(torch.float32)
     return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def stable_top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis of a float tensor of any rank:
+    the ``k`` largest values of each row in descending order and their
+    int32 indices, in XLA's total order of floats (-0.0 below +0.0) and
+    the lower index first among equal values (``torch.topk`` promises no
+    order among ties). Each value's place in the total order and its index
+    are packed into one int64 key, unique within a row, so one
+    ``torch.topk`` of the keys gives the order without a sort or a sync."""
+    bits = x.to(torch.float32).view(torch.int32)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    n = x.shape[-1]
+    rev = n - 1 - torch.arange(n, dtype=torch.int64, device=x.device)
+    idx = torch.topk((order << 32) | rev, k, dim=-1).indices
+    return torch.gather(x, -1, idx), idx.to(torch.int32)

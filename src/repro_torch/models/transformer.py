@@ -1,12 +1,14 @@
 """Decoder-only LM transformer, the counterpart of
-``repro.models.transformer`` for the dense LM architectures: training
-(``forward_train``, ``loss_fn``), prefill and greedy decode.
+``repro.models.transformer`` for every LM architecture of the registry:
+training (``forward_train``, ``loss_fn``), prefill and greedy decode.
 
 One config-driven implementation, as in the reference:
   - GQA attention (any H/K ratio), RoPE, optional QKV bias (qwen2.5)
   - alternating local (sliding-window) / global layers, attention and final
     logit soft-capping, post-norms, zero-centred RMSNorm (gemma2)
-  - SwiGLU MLP (the MoE FFN is not ported yet: an ``is_moe`` config raises)
+  - SwiGLU MLP or the top-k MoE FFN of ``models.moe`` (moonshot 64
+    experts / top-6, phi3.5 16 / top-2), routed per call, so each
+    microbatch of a train step and each decode step has its own capacity
   - train (full-sequence logits; with ``remat`` each block of the pattern
     is recomputed in the backward pass, as the reference's
     ``jax.checkpoint``), prefill (builds the KV cache) and decode (one token
@@ -15,14 +17,13 @@ One config-driven implementation, as in the reference:
 
 Parameters are a dictionary in the reference's pytree layout: weights in
 ``[in, out]`` (so ``x @ w`` as there), and the layers of each block-pattern
-entry stacked over ``n_blocks`` under ``params["layers"]["sub{i}_{kind}"]``.
+entry stacked over ``n_blocks`` under ``params["layers"]["sub{i}_{kind}"]``;
+an MoE layer holds its FFN under ``"moe"`` (the router in fp32).
 ``params_from_reference`` copies the reference's initialised pytree across.
 The config keeps the reference's fields but the mesh knobs (``AxisRules``,
 ``moe_impl``, ``moe_shard_capacity``), which have no counterpart on one
-device, and the MoE routing knobs (``moe_top_k``, ``moe_capacity``), which
-wait for the MoE slice. Layers run in a Python loop (the reference's
-``scan``); the KV cache is updated in place (the reference returns a new
-one).
+device. Layers run in a Python loop (the reference's ``scan``); the KV
+cache is updated in place (the reference returns a new one).
 
 At ``s >= cfg.flash_cutoff`` attention takes the flash path. In prefill it
 goes through ``kernels.ops.flash_attention_gqa``: the hand-written kernel
@@ -46,6 +47,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from . import moe
 from .attention import flash_attention_torch
 from .common import (apply_rope, cross_entropy_loss, rms_norm, rope_table,
                      silu, softcap, trunc_normal)
@@ -80,8 +82,10 @@ class TransformerConfig:
     sliding_window: int = 0  # >0: block pattern alternates (local, global)
     post_norms: bool = False
     norm_eps: float = 1e-6
-    # MoE (0 experts = dense MLP; an MoE config raises, see _dense_only)
+    # MoE (0 experts = dense MLP)
     moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_capacity: float = 1.25
     dtype: Any = torch.bfloat16
     query_scale: Optional[float] = None  # None -> 1/sqrt(d_head)
     tie_embeddings: bool = False
@@ -124,10 +128,15 @@ class TransformerConfig:
         emb = v * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
 
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("not ported yet: moe")
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: ``moe_top_k`` of the experts;
+        as the reference counts them)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_ffn = self.moe_top_k * 3 * d * f + d * self.moe_experts
+        full_ffn = self.moe_experts * 3 * d * f + d * self.moe_experts
+        return self.param_count() - self.n_layers * (full_ffn - dense_ffn)
 
 
 # --------------------------------------------------------------------------
@@ -142,8 +151,19 @@ def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
         shapes.update(bq=(h * dh,), bk=(k_ * dh,), bv=(k_ * dh,))
     if cfg.post_norms:
         shapes.update(attn_post_norm=(d,), ffn_post_norm=(d,))
-    shapes.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+    if cfg.is_moe:
+        e = cfg.moe_experts
+        shapes["moe"] = {"router": (d, e), "w_gate": (e, d, f),
+                         "w_up": (e, d, f), "w_down": (e, f, d)}
+    else:
+        shapes.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
     return shapes
+
+
+def _leaf_dtype(cfg: TransformerConfig, name: str) -> torch.dtype:
+    """The MoE router is fp32 (the reference's); every other leaf is
+    ``cfg.dtype``."""
+    return torch.float32 if name == "router" else cfg.dtype
 
 
 _RANDOM = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -158,11 +178,12 @@ def init_params(cfg: TransformerConfig,
                 generator: torch.Generator) -> Dict[str, Any]:
     """Random parameters on ``generator``'s device, in the reference's
     layout and init (truncated normal scaled by fan-in; norms 0 or 1;
-    biases 0). The draws differ from the reference's: parity tests copy
-    its parameters with ``params_from_reference``. Each stacked leaf is
-    allocated once and filled block by block, so the fp32 draw of one
-    layer's matrix is the only transient."""
-    _dense_only(cfg)
+    biases 0; an MoE layer's FFN as ``moe.moe_init`` draws it, its experts
+    with a fan-in of E as in the reference). The draws differ from the
+    reference's: parity tests copy its parameters with
+    ``params_from_reference``. Each stacked leaf is allocated once and
+    filled block by block, so the fp32 draw of one layer's matrix is the
+    only transient."""
     dev = generator.device
     params: Dict[str, Any] = {
         "embed": trunc_normal(generator, (cfg.vocab, cfg.d_model), 1.0,
@@ -176,6 +197,9 @@ def init_params(cfg: TransformerConfig,
     for i, kind in enumerate(cfg.pattern):
         leaves = {}
         for name, shape in _layer_shapes(cfg).items():
+            if name == "moe":
+                leaves[name] = _moe_init(cfg, shape, generator)
+                continue
             full = (cfg.n_blocks,) + shape
             if name in _RANDOM:
                 t = torch.empty(full, dtype=cfg.dtype, device=dev)
@@ -189,6 +213,21 @@ def init_params(cfg: TransformerConfig,
         layers[f"sub{i}_{kind}"] = leaves
     params["layers"] = layers
     return params
+
+
+def _moe_init(cfg: TransformerConfig, shapes, generator):
+    """The MoE leaves stacked over ``n_blocks``, each block drawn by
+    ``moe.moe_init`` (never the stack as one draw: fan-in is E)."""
+    out = {name: torch.empty((cfg.n_blocks,) + shape,
+                             dtype=_leaf_dtype(cfg, name),
+                             device=generator.device)
+           for name, shape in shapes.items()}
+    for blk in range(cfg.n_blocks):
+        layer = moe.moe_init(generator, cfg.d_model, cfg.d_ff,
+                             cfg.moe_experts, cfg.dtype)
+        for name, t in layer.items():
+            out[name][blk] = t
+    return out
 
 
 def _tensor(a, dtype: torch.dtype) -> torch.Tensor:
@@ -206,25 +245,31 @@ def _tensor(a, dtype: torch.dtype) -> torch.Tensor:
 def params_from_reference(cfg: TransformerConfig, tree) -> Dict[str, Any]:
     """The port's parameters from the reference's pytree (numpy arrays,
     layers stacked over ``n_blocks``): the same leaves in the same layout,
-    as CPU tensors."""
-    _dense_only(cfg)
+    as CPU tensors (the MoE router fp32, every other leaf ``cfg.dtype``)."""
     out: Dict[str, Any] = {k: _tensor(tree[k], cfg.dtype)
                            for k in ("embed", "final_norm", "unembed")
                            if k in tree}
-    out["layers"] = {}
-    for i, kind in enumerate(cfg.pattern):
-        key = f"sub{i}_{kind}"
-        sub = tree["layers"][key]
-        want = _layer_shapes(cfg)
+
+    def copy(key, sub, want):
         if set(sub) != set(want):
             raise ValueError(f"{key}: leaves {sorted(sub)}, expected "
                              f"{sorted(want)}")
-        out["layers"][key] = {}
+        leaves = {}
         for name, shape in want.items():
-            t = _tensor(sub[name], cfg.dtype)
+            if isinstance(shape, dict):
+                leaves[name] = copy(f"{key}.{name}", sub[name], shape)
+                continue
+            t = _tensor(sub[name], _leaf_dtype(cfg, name))
             if tuple(t.shape) != (cfg.n_blocks,) + shape:
                 raise ValueError(f"{key}.{name}: shape {tuple(t.shape)}")
-            out["layers"][key][name] = t
+            leaves[name] = t
+        return leaves
+
+    out["layers"] = {
+        f"sub{i}_{kind}": copy(f"sub{i}_{kind}",
+                               tree["layers"][f"sub{i}_{kind}"],
+                               _layer_shapes(cfg))
+        for i, kind in enumerate(cfg.pattern)}
     return out
 
 
@@ -301,8 +346,20 @@ def _mlp(x, p):
     return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
-def _block(stacked: Dict[str, torch.Tensor], blk: int):
-    return {name: t[blk] for name, t in stacked.items()}
+def _ffn(x_flat, p, cfg: TransformerConfig):
+    """The FFN of ``x_flat [T, d]``: the MoE of ``p["moe"]`` (routed over
+    these T tokens) or the dense MLP."""
+    if cfg.is_moe:
+        return moe.moe_apply(p["moe"], x_flat, n_experts=cfg.moe_experts,
+                             top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.moe_capacity)
+    return _mlp(x_flat, p)
+
+
+def _block(stacked: Dict[str, Any], blk: int):
+    """Block ``blk`` of every stacked leaf, nested dictionaries too."""
+    return {name: _block(t, blk) if isinstance(t, dict) else t[blk]
+            for name, t in stacked.items()}
 
 
 def _layer(x, p, kind: str, cfg: TransformerConfig, sin, cos, *,
@@ -334,7 +391,7 @@ def _layer(x, p, kind: str, cfg: TransformerConfig, sin, cos, *,
         attn = _norm(attn, p["attn_post_norm"], cfg)
     x = x + attn
     hn = _norm(x, p["ffn_norm"], cfg)
-    y = _mlp(hn.reshape(b * s, d), p).reshape(b, s, d)
+    y = _ffn(hn.reshape(b * s, d), p, cfg).reshape(b, s, d)
     if cfg.post_norms:
         y = _norm(y, p["ffn_post_norm"], cfg)
     return x + y, (k, v)
@@ -354,7 +411,6 @@ def forward_train(params, tokens, cfg: TransformerConfig):
     """``tokens [B, S]`` -> logits ``[B, S, V]``. With ``cfg.remat`` each
     block of the pattern keeps only its input for the backward pass and is
     run again there (``torch.utils.checkpoint``, non-reentrant)."""
-    _dense_only(cfg)
     s = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     sin, cos = rope_table(torch.arange(s, device=tokens.device), cfg.d_head,
@@ -403,7 +459,6 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
 def forward_prefill(params, tokens, cfg: TransformerConfig, *, max_len: int):
     """Run the prompt ``tokens [B, S]``; returns (last-token logits
     ``[B, V]``, KV cache)."""
-    _dense_only(cfg)
     b, s = tokens.shape
     dev = tokens.device
     x = _embed(params, tokens, cfg)
@@ -452,7 +507,7 @@ def _decode_layer(x, p, kind, cache, pos: int, cfg: TransformerConfig,
         attn = _norm(attn, p["attn_post_norm"], cfg)
     x = x + attn
     hn = _norm(x, p["ffn_norm"], cfg)
-    y = _mlp(hn.reshape(b, -1), p).reshape(b, 1, -1)
+    y = _ffn(hn.reshape(b, -1), p, cfg).reshape(b, 1, -1)
     if cfg.post_norms:
         y = _norm(y, p["ffn_post_norm"], cfg)
     return x + y
@@ -461,7 +516,6 @@ def _decode_layer(x, p, kind, cache, pos: int, cfg: TransformerConfig,
 def forward_decode(params, token, pos: int, cache, cfg: TransformerConfig):
     """``token [B]`` at position ``pos`` -> (logits ``[B, V]``, cache); the
     cache is updated in place and returned."""
-    _dense_only(cfg)
     x = _embed(params, token, cfg)[:, None, :]
     pos = int(pos)
     sin, cos = rope_table(torch.tensor([pos], device=x.device), cfg.d_head,

@@ -22,7 +22,7 @@ from typing import Callable
 import torch
 
 from ..models import transformer as tfm
-from ..models.common import cross_entropy_loss
+from ..models.common import cross_entropy_loss, stable_top_k
 from ..models.gnn.common import segment_mean
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .optimizer import adamw
@@ -205,23 +205,6 @@ def make_recsys_serve_step(apply_fn, cfg):
         return torch.sigmoid(apply_fn(params, batch, cfg))
 
     return step
-
-
-def stable_top_k(x: torch.Tensor, k: int):
-    """``jax.lax.top_k`` of a 1-D float tensor: the ``k`` largest values in
-    descending order and their int32 indices, in XLA's total order of
-    floats (-0.0 below +0.0) and the lower index first among equal values
-    (``torch.topk`` promises no order among ties). Every value above the
-    k-th is taken, then the lowest indices of those equal to it; a stable
-    sort of the k orders them."""
-    bits = x.to(torch.float32).view(torch.int32)
-    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # the total order
-    thr = torch.topk(key, k).values[-1]
-    above = torch.nonzero(key > thr).squeeze(1)
-    tied = torch.nonzero(key == thr).squeeze(1)[:k - above.numel()]
-    idx = torch.cat([above, tied])
-    idx = idx[torch.sort(key[idx], descending=True, stable=True).indices]
-    return x[idx], idx.to(torch.int32)
 
 
 def make_retrieval_step(score_fn, cfg, *, top_k: int = 100):

@@ -493,6 +493,46 @@ def test_lm_train_step_on_card_matches_cpu():
 
 
 @pytest.mark.gpu
+def test_moe_apply_on_card_matches_cpu():
+    """``moe_apply`` at moonshot's smoke sizes (8 experts, top 2, d 64, f
+    96) on 256 tokens: in fp32 (TF32 off, asserted) the card's expert ids
+    equal the CPU's and its output is within 1e-5 of it (relative L2 and
+    element by element against the largest); in bf16 two calls on the card
+    give the same bits (the combine adds in slot order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: no CUDA device found")
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    e, k, d, f, t = 8, 2, 64, 96, 256
+    p = moe.moe_init(torch.Generator().manual_seed(0), d, f, e,
+                     torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(t, d)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd = tree_map(lambda v: v.to(dev), p)
+        xd = x.to(dev)
+        _, ids = moe.moe_route(pd["router"], xd, k)
+        out[dev] = (ids.cpu(), moe.moe_apply(pd, xd, n_experts=e,
+                                             top_k=k).cpu())
+    assert out["cuda"][0].dtype == torch.int32
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    a, b = out["cpu"][1], out["cuda"][1]
+    assert float((a - b).norm() / a.norm()) <= 1e-5
+    assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    pb = tree_map(lambda v: v.to("cuda"), p)
+    pb = {n: v if n == "router" else v.to(torch.bfloat16)
+          for n, v in pb.items()}
+    xb = x.to("cuda", torch.bfloat16)
+    first = moe.moe_apply(pb, xb, n_experts=e, top_k=k)
+    again = moe.moe_apply(pb, xb, n_experts=e, top_k=k)
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.gpu
 def test_din_train_step_on_card_matches_cpu():
     """Three steps of the DIN train step (smoke config, the launcher's
     optimizer) on the card and on the CPU from the same parameters:

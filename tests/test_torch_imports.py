@@ -75,7 +75,8 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.data.recsys", "repro_torch.data.tokens",
     "repro_torch.graphs.sampler", "repro_torch.distributed.hub_gather",
     "repro_torch.models.common", "repro_torch.models.attention",
-    "repro_torch.models.transformer", "repro_torch.models.recsys.embedding",
+    "repro_torch.models.transformer", "repro_torch.models.moe",
+    "repro_torch.models.recsys.embedding",
     "repro_torch.models.recsys.din", "repro_torch.train.train_loop",
     "repro_torch.kernels.segment_sum_sorted", "repro_torch.tree",
     "repro_torch.configs.inputs", "repro_torch.configs.gin_tu",

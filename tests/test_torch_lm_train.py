@@ -248,13 +248,35 @@ def test_prefill_still_reaches_b8_and_training_does_not(monkeypatch):
     assert len(calls) == pcfg.n_layers
 
 
-def test_moe_configs_still_raise_in_training():
-    cfg = registry.get_arch("phi3.5-moe-42b-a6.6b").smoke_config()
-    with pytest.raises(NotImplementedError, match="not ported yet: moe"):
-        tfm.forward_train({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet: moe"):
-        train.main(["--arch", "moonshot-v1-16b-a3b", "--smoke", "--device",
-                    "cpu"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_configs_train_through_the_flash_branch(arch, monkeypatch):
+    """The MoE LMs at the flash branch of training (a 64-token batch with
+    the cutoff lowered, the blocked softmax, never B8), remat on, fp32:
+    logits, loss and every gradient (the fp32 router's too) against
+    ``jax.grad``."""
+    rcfg, pcfg = _configs(arch, "float32", flash=True, remat=True)
+    tree = _tree(rcfg, seed=3)
+    batch = _tokens(rcfg, 2, 64, seed=2)
+    rp = jax.tree.map(jnp.asarray, tree)
+    pp = tfm.params_from_reference(pcfg, tree)
+    tok, lab = batch["tokens"], batch["labels"]
+    monkeypatch.setattr(ops, "flash_attention_gqa", None)  # never reached
+    want_logits = ref_tfm.forward_train(rp, jnp.asarray(tok), rcfg)
+    r_loss, r_grads = jax.value_and_grad(ref_tfm.loss_fn)(
+        rp, jnp.asarray(tok), jnp.asarray(lab), rcfg)
+    got_logits = tfm.forward_train(pp, torch.from_numpy(tok), pcfg)
+    np.testing.assert_allclose(_f32(got_logits), _f32(want_logits),
+                               rtol=F32_REL, atol=F32_REL)
+    leaves = [x.requires_grad_(True) for x in tree_leaves(pp)]
+    p_loss = tfm.loss_fn(pp, torch.from_numpy(tok), torch.from_numpy(lab),
+                         pcfg)
+    np.testing.assert_allclose(float(p_loss.detach()), float(r_loss),
+                               rtol=F32_REL)
+    _check_leaves(torch.autograd.grad(p_loss, leaves), r_grads, "float32",
+                  "grad")
+    router = pp["layers"]["sub0_global"]["moe"]["router"]
+    assert router.dtype == torch.float32
 
 
 # --------------------------------------------------------------------------

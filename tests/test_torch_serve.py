@@ -466,7 +466,8 @@ def test_lm_prefill_matches_reference_bf16(flash, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-27b", "qwen2.5-14b",
-                                  "stablelm-1.6b"])
+                                  "stablelm-1.6b", "moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_init_params_has_the_reference_layout(arch):
     rcfg = ref_registry.get_arch(arch).smoke_config()
     pcfg = registry.get_arch(arch).smoke_config()
@@ -485,14 +486,24 @@ def test_init_params_has_the_reference_layout(arch):
             assert not layer[name].any()
 
 
-def test_moe_configs_raise_not_ported():
-    for arch in ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"):
-        cfg = registry.get_arch(arch).smoke_config()
-        with pytest.raises(NotImplementedError, match="not ported yet: moe"):
-            tfm.init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="not ported yet: moe"):
-            tfm.forward_prefill({}, torch.zeros((1, 4), dtype=torch.int32),
-                                cfg, max_len=8)
+@pytest.mark.parametrize("flash", [False, True], ids=["dense", "flash"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_lm_prefill_and_decode_match_reference_fp32(arch, flash,
+                                                        monkeypatch):
+    """The MoE LMs (their FFN routed per call: the prompt's 2 x S tokens in
+    prefill, the batch's 2 in decode, where an expert holds one) through
+    prefill and 4 greedy decode steps in fp32, dense and flash: logits and
+    every KV cache leaf, as the dense LMs'."""
+    steps = _run_both(arch, "float32", flash, monkeypatch)
+    for want, got, rc, pc in steps:
+        close(got, want, MODEL_F32)
+        assert np.array_equal(want.argmax(-1), got.argmax(-1))
+        for key in rc:
+            for leaf in ("k", "v"):
+                close(pc[key][leaf].numpy(), rc[key][leaf], MODEL_F32)
+            np.testing.assert_array_equal(pc[key]["pos"].numpy(),
+                                          np.asarray(rc[key]["pos"]))
 
 
 def test_params_from_reference_checks_dtype_and_leaves():
@@ -649,16 +660,15 @@ def test_serve_main_raises_without_a_card():
                                   "phi3.5-moe-42b-a6.6b", "din", "paper-lcc"])
 def test_registry_configs_equal_the_reference(arch):
     """Every field of the full and smoke configs, dtypes mapped across;
-    the reference's mesh and MoE routing knobs have no counterpart
-    (``remat`` and ``flash_block`` do, for training)."""
+    the reference's mesh knobs have no counterpart (``remat``,
+    ``flash_block`` and the MoE routing knobs do)."""
     want, got = ref_registry.get_arch(arch), registry.get_arch(arch)
     assert (got.family, got.skip_shapes) == (want.family, want.skip_shapes)
     assert got.shapes.keys() == want.shapes.keys()
     for make in ("config", "smoke_config"):
         a = dataclasses.asdict(getattr(want, make)())
         b = dataclasses.asdict(getattr(got, make)())
-        for knob in ("moe_impl", "moe_shard_capacity", "moe_top_k",
-                     "moe_capacity"):
+        for knob in ("moe_impl", "moe_shard_capacity"):
             a.pop(knob, None)
         if "dtype" in a:
             assert str(b.pop("dtype"))[6:] == jnp.dtype(a.pop("dtype")).name

@@ -644,9 +644,9 @@ def test_wire_gnn_is_the_launchers_wiring():
 
 
 def test_train_main_raises_without_a_card_and_for_unported_families():
-    """Every family raises without a card by default; the LM and recsys
-    families train on the CPU when asked (``--smoke --device cpu``); the
-    MoE LMs (their FFN is not ported) and paper-lcc raise."""
+    """Every family raises without a card by default; the LM (the MoE LMs
+    too) and recsys families train on the CPU when asked (``--smoke
+    --device cpu``); paper-lcc raises."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
     for arch in ("gin-tu", "stablelm-1.6b", "din"):
@@ -655,12 +655,35 @@ def test_train_main_raises_without_a_card_and_for_unported_families():
     for arch in ("stablelm-1.6b", "din", "mace"):
         assert train.main(["--arch", arch, "--smoke", "--steps", "1",
                            "--device", "cpu"]) == 0
-    with pytest.raises(NotImplementedError, match="not ported yet: moe"):
-        train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke",
-                    "--device", "cpu"])
+    assert train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke",
+                       "--steps", "1", "--device", "cpu"]) == 0
     assert registry.get_arch("mace").family == "gnn"
     with pytest.raises(ValueError, match="no train step"):
         train.main(["--arch", "paper-lcc", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_train_build_moe_routes_each_microbatch_alone(arch, monkeypatch):
+    """The launcher's LM wiring for an MoE LM: its 4 x 64 batch in 2
+    microbatches, each layer's FFN routed once a microbatch over its
+    2 x 64 tokens (the capacity of 128 tokens, as the reference's
+    microbatch has), the router fp32 before and after the update."""
+    from repro_torch.models import moe
+
+    params, optim, step, data_fn = train.build(arch, 0, "cpu", smoke=True,
+                                               steps=4)
+    cfg = registry.get_arch(arch).smoke_config()
+    seen = []
+    real = moe.moe_route
+    monkeypatch.setattr(moe, "moe_route", lambda r, x, k: (
+        seen.append((x.shape[0], k)) or real(r, x, k)))
+    params, state, m = step(params, optim.init(params), data_fn(0))
+    assert np.isfinite(float(m["loss"])) and int(state.count) == 1
+    assert seen == [(2 * 64, cfg.moe_top_k)] * (2 * cfg.n_layers)
+    for leaf in ("router", "w_gate"):
+        x = params["layers"]["sub0_global"]["moe"][leaf]
+        assert x.dtype == (torch.float32 if leaf == "router" else cfg.dtype)
 
 
 # --------------------------------------------------------------------------
