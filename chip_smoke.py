@@ -214,11 +214,29 @@ the previous phase's line:
            [N, 100, 144] fp32 attention features are 57.6 GB at 10^6),
            values and indices equal to a full stable sort's top 100; a
            smoke DIN step on the card against the CPU
+  census   the census of every configuration the phases run
+           (``repro_torch.launch.dryrun --chip-runs``: the op census on fake
+           tensors, on the host in a process of its own, started before
+           ``serve_lm``) against the card: ``HW.HBM_BYTES`` and the SM count
+           behind ``HW.SFU_OPS`` equal the card's; moonshot-v1-16b-a3b x
+           train_4k at 2 layers (batch 4 in 2, 2 steps) run here; for each
+           run a phase made (serve_lm's gemma2 8,192 x 1, serve_moe's
+           moonshot and phi3.5 at 24 layers, train_gnn's cells and the hub
+           split, train_lm's, train_moe's and train_din's cells) the
+           predicted peak beside the phase's ``max_memory_allocated`` less
+           the base it held before the run, their ratio, the reserved bytes
+           beside the allocator model's; a fit verdict that disagrees with
+           the card fails
   validate ``repro_torch.launch.stream_run`` at R-MAT scale 10, 4 batches,
            ``--device-tier`` with ``--trace --metrics --cache-trace``; the
            three artifacts accepted by ``repro_torch.obs.validate.main``
            (exit 0) in this process, with no module of ``jax`` or of the
            reference package loaded
+  examples the five ``examples/torch/*.py`` on the card at their defaults:
+           ``lcc_distributed`` through its ``main`` in this process (B7's
+           launches counted; three exact YES lines), ``quickstart``,
+           ``serve_lm``, ``train_lm`` and ``din_ctr`` as processes of their
+           own, started together; each returns 0
   timing   each kernel at full-size shapes (CUDA events) beside its plain
            version, its bound and, where one exists, one PyTorch call of
            the same function: B1 at the padded engine's per-round slab; B7
@@ -269,14 +287,20 @@ its cross-check against B1 (the reference has no other caller of it).
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 FULL_SCALE = 16
@@ -363,15 +387,9 @@ SPMD_SYNC_UNITS = 4
 SPMD_CHECKS_PER_RUN = 3
 VS_SLOTS_PLAIN_PAIRS = 2048  # the all-pairs plain version costs ~W^2/pair
 BITMAP_PAIRS = 65_536
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# fp32 CUDA-core peak of the data sheet; taken as the rate of the int32
-# compares too (an upper bound of it, so the bound stays a lower bound)
-OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, the same sheet
-# special-function units (exp2, rcp): 16 results a clock per SM (NVIDIA's
-# arithmetic throughput table, compute capability 9.0) x 132 SMs x 1,980
-# MHz (the card's maximum SM clock, nvidia-smi clocks.max.sm)
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# the card's rates for every bound (HBM bytes/s, int32 op/s, bf16 FLOP/s,
+# special-function op/s) are repro_torch.launch.mesh.HW's, read in main()
+HW = None
 # the serving path: gemma2-27b at full width and depth, a prompt of the
 # reference's flash cutoff (8,192; its shape prefill_32k is 32,768 x 32),
 # batch 1, 16 greedy tokens; then the launcher's defaults (dense attention)
@@ -507,6 +525,27 @@ ROTATION_RTOL = 1e-4
 # artifacts of a small streaming run on the card
 VALIDATE_ARGV = ["--scale", "10", "--edge-factor", "16", "--batches", "4",
                  "--device-tier"]
+# the census (repro_torch.launch.dryrun --chip-runs) of every configuration
+# the phases run, computed on the host in a process of its own while the
+# card serves and trains; moonshot x train_4k at 2 layers (an earlier
+# record: out of memory after the earlier phases) is run in phase census
+CENSUS_TIMEOUT_S = 600
+MOON_TWO_LAYERS = "moonshot-v1-16b-a3b x train_4k, batch 4 in 2, 2 layers"
+# the run names of the census (dryrun.CHIP_RUNS) of the phases' cells
+CENSUS_CELLS = {
+    ("gin-tu", "ogb_products"): "gin-tu x ogb_products",
+    ("gat-cora", "full_graph_sm"): "gat-cora x full_graph_sm",
+    ("mace", "molecule"): "mace x molecule",
+    ("gat-cora", "ogb_products_hub"):
+        "gat-cora x ogb_products, hub split, a tenth of the edges",
+    ("gat-cora", "ogb_products_cut"):
+        "gat-cora x ogb_products, unsplit, a tenth of the edges",
+}
+# examples/torch: lcc_distributed through its main in this process (the
+# launch counters show B7), the others as processes of their own, all on
+# the card at their defaults
+EXAMPLE_PROCESSES = ("quickstart", "serve_lm", "train_lm", "din_ctr")
+EXAMPLE_TIMEOUT_S = 300
 
 
 def c_params(path, name):
@@ -603,6 +642,23 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
+def memory_base(torch):
+    """The memory a phase holds before a run's tensors (allocated and
+    reserved bytes), the peak counters reset from here: a run's figure to
+    hold against the census is its peak less this base."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
+
+
+def memory_peaks(base, torch):
+    """The peaks since ``memory_base``, and the base itself."""
+    return {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "memory_base": base}
+
+
 def sustained(fn, torch, seconds=2.0):
     """``fn`` back to back for ``seconds``: mean ms a call (CUDA events),
     and the SM clock (MHz) and board power (W) that ``nvidia-smi`` samples
@@ -667,8 +723,8 @@ def global_rows(prob, ids, np):
 def bound_ms(nbytes: float, ops: float):
     """(bound ms, what bounds it): the larger of the bytes over the card's
     memory rate and the operations over its peak rate."""
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / OPS_PER_S * 1e3
+    b_ms = nbytes / HW.HBM_BW * 1e3
+    o_ms = ops / HW.INT32_OPS * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
@@ -1327,7 +1383,7 @@ def phase_serve_lm(np, torch):
     from repro_torch.models.attention import flash_attention_torch
 
     def launcher(argv):
-        torch.cuda.reset_peak_memory_stats()
+        base = memory_base(torch)
         run = {}
         t0 = time.perf_counter()
         rc = serve.main(argv, result=run)
@@ -1348,7 +1404,7 @@ def phase_serve_lm(np, torch):
                "prefill_ms": run["prefill_s"] * 1e3,
                "decode_ms_per_token": run["decode_s"] / tokens * 1e3,
                "tokens_per_s": batch * tokens / run["decode_s"],
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               **memory_peaks(base, torch),
                "first_tokens": run["tokens"][0, :8].tolist()}
         return run, rec
 
@@ -1656,7 +1712,7 @@ def phase_serve_moe(dev, np, torch):
 
     # ---- (a) the main path: counters to 0, the launcher, read
     fa.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
+    base = memory_base(torch)
     run = {}
     t0 = time.perf_counter()
     if serve.main(MOE_ARGV, result=run) != 0:
@@ -1685,7 +1741,7 @@ def phase_serve_moe(dev, np, torch):
             "batch": batch, "prompt": prompt, "tokens": tokens,
             "prefill_ms": run["prefill_s"] * 1e3,
             "decode_ms_per_token": run["decode_s"] / tokens * 1e3,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            **memory_peaks(base, torch),
             "flash_attention_launches": b8,
             "flash_attention_launches_by_variant": by_variant,
             "first_tokens": run["tokens"][0, :8].tolist()}
@@ -1753,7 +1809,7 @@ def phase_serve_moe(dev, np, torch):
     full = get_arch(PHI_ARCH).config()
     pcfg = dataclasses.replace(full, n_layers=PHI_LAYERS)
     fa.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
+    base = memory_base(torch)
     t0 = time.perf_counter()
     params = tfm.init_params(pcfg, torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -1792,7 +1848,7 @@ def phase_serve_moe(dev, np, torch):
         "params": pcfg.param_count(), "init_s": init_s,
         "batch": 1, "prompt": 8192, "tokens": tokens,
         "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        **memory_peaks(base, torch),
         "flash_attention_launches": b8,
         "flash_attention_launches_by_variant": by_variant}
     del params, prompts, logits, cache
@@ -1916,7 +1972,7 @@ def time_flash(np, torch):
         flops, nbytes = attention_work(s, s, kh, g, dh, True, window, 2)
         pairs = flops / (4 * dh)
         bnd, by = bound_ms(nbytes, 0.0)
-        f_ms = flops / BF16_FLOPS_PER_S * 1e3
+        f_ms = flops / HW.PEAK_FLOPS_BF16 * 1e3
         if f_ms > bnd:
             bnd, by = f_ms, "operations"
         out[layer] = {"shape": [1, s, kh, g, dh], "window": window,
@@ -1927,9 +1983,9 @@ def time_flash(np, torch):
                       "tflops": flops / ms / 1e9,
                       "tflops_executed": 1.5 * flops / ms / 1e9,  # hi + lo P V
                       "sfu_ops": pairs,
-                      "sfu_ms": pairs / SFU_OPS_PER_S * 1e3,
+                      "sfu_ms": pairs / HW.SFU_OPS * 1e3,
                       "sfu_ops_tanh_on_sfu": 3 * pairs,
-                      "sfu_ms_tanh_on_sfu": 3 * pairs / SFU_OPS_PER_S * 1e3}
+                      "sfu_ms_tanh_on_sfu": 3 * pairs / HW.SFU_OPS * 1e3}
     kw = dict(scale=scale, causal=True, window=0, softcap=50.0)
     out["global"]["layouts_ms"] = {
         name: min_ms(lambda: fa._launch("wgmma", q, k, v, torch.empty_like(q),
@@ -2168,7 +2224,8 @@ TRAIN_KINDS = (
     ("elementwise", r"elementwise|vectorized"))
 
 
-def train_cell(arch_id, shape_id, dev, np, torch, batch=None, cell=None):
+def train_cell(arch_id, shape_id, dev, np, torch, batch=None, cell=None,
+               base=None):
     """One (arch, shape) cell through the launcher's own wiring
     (``launch.train.wire_gnn``: the batch's edges sorted once, each stream
     of a hub-split batch by its own destinations, the launcher's optimizer
@@ -2179,12 +2236,14 @@ def train_cell(arch_id, shape_id, dev, np, torch, batch=None, cell=None):
     parent's B9 in ``build/parent/``, the kernel route's steps again with
     this B9 and with the parent's, in turns. ``batch`` is (cfg, batch on
     the card), ``gnn_cell_batch``'s by default; ``cell`` names it in
-    ``B9_PER_STEP`` (the shape by default). Returns (record, B9 launches
-    of the kernel route's steps)."""
+    ``B9_PER_STEP`` (the shape by default); ``base`` the memory the phase
+    held before the cell's tensors (``memory_base``; taken here by
+    default). Returns (record, B9 launches of the kernel route's steps)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_sum_sorted as ss
     from repro_torch.launch.train import wire_gnn
 
+    base = base or memory_base(torch)
     t0 = time.perf_counter()
     cfg, raw = (gnn_cell_batch(arch_id, shape_id, dev, torch)
                 if batch is None else batch)
@@ -2231,7 +2290,8 @@ def train_cell(arch_id, shape_id, dev, np, torch, batch=None, cell=None):
            "unmasked_edges": sum(int(batch[k].sum()) for k in mask_keys),
            "batch_gen_s": gen_s, "wire_s": wire_s,
            "b9_launches_per_step": kernel["segment_sum_sorted_launches"]
-           / TRAIN_STEPS, "kernel_route": kernel}
+           / TRAIN_STEPS, "kernel_route": kernel,
+           "memory_base": base}
     rec["profiled_step"], params, opt_state = profiled_step(
         step, params, opt_state, batch, GNN_KINDS, torch)
     if "positions" in batch:  # MACE: its energies, at full width
@@ -2354,6 +2414,7 @@ def hub_split_cells(dev, np, torch):
     shape = arch.shapes["ogb_products"]
     cfg = _adapt_cfg(arch, arch.config(), "ogb_products", shape)
     n, e = shape.n_nodes, shape.n_edges // HUB_EDGE_CUT
+    base = memory_base(torch)
     t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(0)
     b = np.log(HUB_HOT_SHARE) / np.log(HUB_CAPACITY / n)
@@ -2389,7 +2450,7 @@ def hub_split_cells(dev, np, torch):
     for name, batch in (("ogb_products_hub", split),
                         ("ogb_products_cut", unsplit)):
         c, k = train_cell("gat-cora", "ogb_products", dev, np, torch,
-                          batch=(cfg, batch), cell=name)
+                          batch=(cfg, batch), cell=name, base=base)
         cells.append(c)
         launches += k
     del split, unsplit, nodes, edges
@@ -2470,6 +2531,7 @@ def timed_steps(step, data_fn, params, opt_state, steps, np, torch,
             "ms_per_step_median": statistics.median(timed),
             "ms_per_step": timed,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
             "straggler_flags": len(runner.monitor.flagged)}, params, opt_state
 
 
@@ -2567,6 +2629,7 @@ def phase_train_lm(dev, np, torch):
     if not cfg.remat or cfg.dtype != torch.bfloat16:
         raise RuntimeError(f"train_lm: published config {cfg}")
     steps = TRAIN_STEPS
+    base = memory_base(torch)
     t0 = time.perf_counter()
     params, optim, _, _ = train.build("stablelm-1.6b", 0, dev, steps=steps)
     torch.cuda.synchronize()
@@ -2588,6 +2651,7 @@ def phase_train_lm(dev, np, torch):
     tokens = LM_CELL_BATCH * shape.seq_len
     cell.update(
         cell="stablelm-1.6b x train_4k", seq_len=shape.seq_len,
+        memory_base=base,
         global_batch=LM_CELL_BATCH, global_batch_published=shape.global_batch,
         microbatches=LM_CELL_MICROBATCHES, params=cfg.param_count(),
         layers=cfg.n_layers, d_model=cfg.d_model, remat=cfg.remat,
@@ -2662,6 +2726,7 @@ def phase_train_moe(dev, np, torch):
     if not cfg.remat or cfg.dtype != torch.bfloat16:
         raise RuntimeError(f"train_moe: published config {cfg}")
     steps = TRAIN_STEPS
+    base = memory_base(torch)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -2688,6 +2753,7 @@ def phase_train_moe(dev, np, torch):
     ms = cell["ms_per_step_median"]
     cell.update(
         cell="moonshot-v1-16b-a3b x train_4k", seq_len=shape.seq_len,
+        memory_base=base,
         global_batch=LM_CELL_BATCH, global_batch_published=shape.global_batch,
         microbatches=LM_CELL_MICROBATCHES, layers=cfg.n_layers,
         layers_published=full.n_layers,
@@ -2756,6 +2822,7 @@ def phase_train_din(dev, np, torch):
 
     cfg = get_arch("din").config()
     steps = TRAIN_STEPS
+    base = memory_base(torch)
     t0 = time.perf_counter()
     params, optim, step, _ = train.build("din", 0, dev, steps=steps)
     torch.cuda.synchronize()
@@ -2795,7 +2862,7 @@ def phase_train_din(dev, np, torch):
             and untouched["target_rows_moved"] > 0):
         raise RuntimeError(f"train_din: rows no batch touched {untouched}")
     cell.update(
-        cell="din x train_batch", batch=DIN_CELL_BATCH,
+        cell="din x train_batch", batch=DIN_CELL_BATCH, memory_base=base,
         item_table=list(params["item_table"].shape), init_s=init_s,
         host_batches_s=batch_s, untouched_rows=untouched,
         samples_per_s=DIN_CELL_BATCH / cell["ms_per_step_median"] * 1e3)
@@ -4168,9 +4235,208 @@ def spmd_kernel_rows(rec, launches, recorder):
     return rows
 
 
+def stop_children(procs):
+    """Kill what is still running of ``procs`` (a failed phase leaves no
+    process of this script behind)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_census(root):
+    """``repro_torch.launch.dryrun --chip-runs`` in a process of its own on
+    the host (no card visible to it): (process, its output directory)."""
+    out = tempfile.mkdtemp(prefix="census_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--chip-runs",
+         "--out", out], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    # a phase that fails before phase census leaves it running no longer
+    atexit.register(stop_children, [proc])
+    return proc, out
+
+
+def moon_two_layers(dev, np, torch):
+    """moonshot-v1-16b-a3b at its published width, 2 layers, train_4k's
+    sequence, batch 4 in 2 microbatches, as phase train_moe's cell: 2 steps
+    through ``timed_steps``. Its peaks, or the out-of-memory error."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop as tl
+
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").config(),
+                              n_layers=2)
+    stream = TokenStream(cfg.vocab, LM_CELL_BATCH, 4096, seed=0)
+    base = memory_base(torch)
+    rec = {"memory_base": base, "oom": None}
+    try:
+        params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0))
+        optim = opt.adamw(lr=opt.cosine_schedule(3e-4, 1, 2))
+        step = tl.make_lm_train_step(cfg, optim,
+                                     n_microbatches=LM_CELL_MICROBATCHES)
+        cell, params, state = timed_steps(
+            step, lambda i: {k: torch.as_tensor(v, device=dev)
+                             for k, v in stream.batch_at(i).items()},
+            params, optim.init(params), 2, np, torch, tag="census")
+        rec.update(max_memory_allocated=cell["max_memory_allocated"],
+                   max_memory_reserved=cell["max_memory_reserved"],
+                   ms_per_step=cell["ms_per_step"])
+        del params, state, step
+    except torch.cuda.OutOfMemoryError as e:
+        rec["oom"] = str(e)[:600]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def measured_runs(lm_rec, moe_rec, gnn_rec, lm_train_rec, moe_train_rec,
+                  din_train_rec):
+    """The card's figures of the census's runs (dryrun.CHIP_RUNS), from
+    the phases' records: peaks and the base they held before each run."""
+    keys = ("max_memory_allocated", "max_memory_reserved", "memory_base")
+    out = {"gemma2-27b serve 8192 x 1": lm_rec,
+           "moonshot-v1-16b-a3b serve 8192 x 1": moe_rec["moonshot"],
+           "phi3.5-moe-42b-a6.6b serve 8192 x 1, 24 layers":
+               moe_rec["phi35"],
+           "stablelm-1.6b x train_4k, batch 4 in 2": lm_train_rec["cell"],
+           "moonshot-v1-16b-a3b x train_4k, batch 4 in 2, 1 layer":
+               moe_train_rec["cell"],
+           "din x train_batch": din_train_rec["cell"]}
+    for c in gnn_rec["cells"]:
+        name = CENSUS_CELLS[(c["arch"], c["cell"])]
+        out[name] = {**c["kernel_route"], "memory_base": c["memory_base"]}
+    return {name: {k: r[k] for k in keys} for name, r in out.items()}
+
+
+def phase_census(dev, np, torch, started, measured):
+    """The census against the card: ``HW.HBM_BYTES`` and the SM count
+    behind ``HW.SFU_OPS`` against the card's; moonshot x train_4k at 2
+    layers run here (``moon_two_layers``); then, for every run of the
+    census (``dryrun.CHIP_RUNS``, computed on the host by ``start_census``)
+    that a phase ran, its predicted peak beside the phase's
+    ``max_memory_allocated`` less its base, their ratio, the reserved
+    bytes beside the allocator model's, and its fit verdict: a verdict that
+    disagrees with the card (a run that fitted, or ran out of memory)
+    fails."""
+    from repro_torch.launch.mesh import HW
+
+    props = torch.cuda.get_device_properties(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    hw = {"total_memory": props.total_memory, "HBM_BYTES": HW.HBM_BYTES,
+          "sms": props.multi_processor_count, "SMS": HW.SMS,
+          "outside_allocator_bytes": total - free
+          - torch.cuda.memory_reserved(dev),
+          "RESERVE_BYTES": HW.RESERVE_BYTES, "CARD": HW.CARD}
+    if props.total_memory != HW.HBM_BYTES or \
+            props.multi_processor_count != HW.SMS:
+        raise RuntimeError(f"census: HW does not describe this card {hw}")
+    measured = dict(measured)
+    measured[MOON_TWO_LAYERS] = moon_two_layers(dev, np, torch)
+    proc, out = started
+    try:
+        text = proc.communicate(timeout=CENSUS_TIMEOUT_S)[0]
+    finally:
+        stop_children([proc])
+    if proc.returncode:
+        raise RuntimeError(f"census: dryrun --chip-runs returned "
+                           f"{proc.returncode}:\n{text[-3000:]}")
+    with open(os.path.join(out, "chip_runs.json")) as f:
+        runs = json.load(f)
+    shutil.rmtree(out, ignore_errors=True)
+    rows, wrong = [], []
+    for name, c in runs.items():
+        row = {"run": name, "phase": c["phase"], "census_peak": c["peak"],
+               "census_fits": c["fits"],
+               "census_reserved_peak": c["reserved_peak_bytes"]}
+        m = measured.get(name)
+        if m is None:
+            rows.append({**row, "card": "not run"})
+            continue
+        card_fits = m.get("oom") is None
+        row["card_fits"] = card_fits
+        if card_fits:
+            base = m["memory_base"]
+            peak = m["max_memory_allocated"] - base["allocated"]
+            row.update(card_peak=peak, base=base["allocated"],
+                       ratio=c["peak"] / peak,
+                       card_reserved_peak=m["max_memory_reserved"]
+                       - base["reserved"])
+        else:
+            row["card_oom"] = m["oom"]
+        if card_fits != c["fits"]:
+            wrong.append(name)
+        rows.append(row)
+    if wrong:
+        raise RuntimeError(f"census: fit verdicts that disagree with the "
+                           f"card: {wrong}\n{rows}")
+    return {"phase": "census", "hw": hw, "runs": rows,
+            "census_log": text.strip().splitlines()}
+
+
+def phase_examples(root, torch):
+    """The five ``examples/torch/*.py`` on the card at their defaults:
+    ``lcc_distributed`` through its ``main`` in this process (B7's launch
+    counters read around it; three exact YES lines), the others as
+    processes of their own, started together (``train_lm``'s checkpoints
+    in a temporary directory). Each must return 0."""
+    from repro_torch.kernels import epoch_count as ec
+
+    ckpt = tempfile.mkdtemp(prefix="examples_ckpt_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = {}
+    for name in EXAMPLE_PROCESSES:
+        argv = [sys.executable, os.path.join("examples", "torch",
+                                             f"{name}.py")]
+        if name == "train_lm":
+            argv += ["--ckpt-dir", ckpt]
+        procs[name] = (subprocess.Popen(
+            argv, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), time.perf_counter())
+    try:
+        path = os.path.join(root, "examples", "torch", "lcc_distributed.py")
+        spec = importlib.util.spec_from_file_location(
+            "lcc_distributed_example", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        ec.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([])
+        torch.cuda.synchronize()
+        lines = buf.getvalue()
+        rec = {"phase": "examples", "lcc_distributed": {
+            "rc": rc, "seconds": time.perf_counter() - t0,
+            "exact_yes": lines.count("exact: YES"),
+            "kernel_launches": ec.launches(),
+            "lines": lines.strip().splitlines()}}
+        launched = rec["lcc_distributed"]["kernel_launches"]
+        if rc != 0 or rec["lcc_distributed"]["exact_yes"] != 3 or \
+                min(launched.values()) <= 0:
+            raise RuntimeError(f"examples: lcc_distributed {rec}")
+        for name, (proc, t0) in procs.items():
+            text = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)[0]
+            rec[name] = {"rc": proc.returncode,
+                         "done_within_s": time.perf_counter() - t0,
+                         "lines": text.strip().splitlines()[-12:]}
+            if proc.returncode:
+                raise RuntimeError(f"examples: {name}.py returned "
+                                   f"{proc.returncode}:\n{text[-3000:]}")
+    finally:
+        stop_children([proc for proc, _ in procs.values()])
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
-    # the timing statistic of every kernel time, shared with the package
-    global cuda_ms, min_ms
+    # the timing statistic of every kernel time, shared with the package,
+    # and the card's constants of every bound
+    global cuda_ms, min_ms, HW
     import torch
 
     if not torch.cuda.is_available():
@@ -4192,6 +4458,7 @@ def main() -> int:
     from repro_torch.kernels import resident_intersect as ri
     from repro_torch.kernels.point_query import batched_pair_counts
     from repro_torch.launch import bag_timing, lcc_run, resident_timing
+    from repro_torch.launch.mesh import HW
     from repro_torch.obs.timing import cuda_ms, min_ms
 
     dev = torch.device("cuda", 0)
@@ -4686,8 +4953,8 @@ def main() -> int:
     nb = (rows_b < sent).sum(1).to(torch.float64)
     prefix_bytes = float((na.sum() + nb.sum()) * 4 + e_t * 4)
     b1_ops = pair_ops(na, nb, torch)
-    bytes_ms = prefix_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = b1_ops / OPS_PER_S * 1e3
+    bytes_ms = prefix_bytes / HW.HBM_BW * 1e3
+    ops_ms = b1_ops / HW.INT32_OPS * 1e3
     kernel_ms = cuda_ms(
         lambda: ops.intersect_count(rows_a, rows_b, sentinel=sent), reps=20,
         warmup=3)
@@ -4807,6 +5074,8 @@ def main() -> int:
     del dprob, operands
     gc.collect()
     torch.cuda.empty_cache()
+    # the census of the phases' configurations, on the host meanwhile
+    census_started = start_census(root)
     lm_rec, b8_launches = phase_serve_lm(np, torch)
     emit(lm_rec)
     din_rec, b10_launches, item_table, served = phase_serve_din(np, torch)
@@ -4825,18 +5094,29 @@ def main() -> int:
     emit(moe_rec)
     train_rec, b9_launches = phase_train_gnn(dev, np, torch)
     emit(train_rec)
-    emit(phase_train_lm(dev, np, torch))
+    lm_train_rec = phase_train_lm(dev, np, torch)
+    emit(lm_train_rec)
     gc.collect()
     torch.cuda.empty_cache()
-    emit(phase_train_moe(dev, np, torch))
+    moe_train_rec = phase_train_moe(dev, np, torch)
+    emit(moe_train_rec)
     gc.collect()
     torch.cuda.empty_cache()
-    emit(phase_train_din(dev, np, torch))
+    din_train_rec = phase_train_din(dev, np, torch)
+    emit(din_train_rec)
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------- the census against the phases' peaks
+    emit(phase_census(dev, np, torch, census_started, measured_runs(
+        lm_rec, moe_rec, train_rec, lm_train_rec, moe_train_rec,
+        din_train_rec)))
+
     # --------------------- the port's validator on the port's own artifacts
     emit(phase_validate(torch))
+
+    # ------------------------------------------- examples/torch on the card
+    emit(phase_examples(root, torch))
 
     # ---------------------------------------------------- timing: B9 rows
     segsum = time_segment_sum(dev, np, torch)

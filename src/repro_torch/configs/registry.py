@@ -20,7 +20,8 @@ from . import (
 )
 from .shapes import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES
 
-__all__ = ["ArchEntry", "ARCHS", "get_arch", "shape_table"]
+__all__ = ["ArchEntry", "ARCHS", "get_arch", "list_archs", "shape_table",
+           "cells"]
 
 _MODULES = [
     moonshot_v1_16b_a3b,
@@ -76,3 +77,24 @@ def get_arch(arch_id: str) -> ArchEntry:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
 
+
+
+def list_archs(assigned_only: bool = False):
+    """Every arch id, sorted; ``assigned_only`` leaves out ``paper-lcc``."""
+    out = sorted(ARCHS)
+    if assigned_only:
+        out = [a for a in out if a != "paper-lcc"]
+    return out
+
+
+def cells(include_skipped: bool = False):
+    """All (arch_id, shape_id) baseline cells (36 runnable + 4 skips), in
+    the reference's order."""
+    out = []
+    for aid in list_archs(assigned_only=True):
+        e = ARCHS[aid]
+        for sid in e.shapes:
+            if sid in e.skip_shapes and not include_skipped:
+                continue
+            out.append((aid, sid))
+    return out

@@ -36,6 +36,7 @@ from . import _build
 __all__ = [
     "segment_sum_sorted",
     "segment_sum_sorted_ref",
+    "kernel_operands",
     "launches",
     "reset_launches",
 ]
@@ -180,6 +181,23 @@ def _launch_args(e: int, d: int, n: int, index: int, align: int):
     return geo.vec, geo.lpr, geo.pieces, geo.steps
 
 
+def kernel_operands(values, seg_ids, n: int):
+    """What the kernel reads and writes, as the wrapper makes them: the
+    values as a contiguous ``[E, D]``, int32 ids (int64 ones narrowed,
+    those outside ``[0, N)`` to -1) and the zeroed ``[N, D]`` output."""
+    e = values.shape[0]
+    d = math.prod(values.shape[1:])
+    flat = values.reshape(e, d)
+    if flat.stride() != (d, 1):
+        flat = flat.contiguous()
+    if seg_ids.dtype == torch.int64:  # ids outside [0, N) stay outside
+        seg_ids = torch.where((seg_ids >= 0) & (seg_ids < n), seg_ids,
+                              -1).to(torch.int32)
+    seg_ids = seg_ids.contiguous()
+    out = torch.zeros((n, d), dtype=torch.float32, device=values.device)
+    return flat, seg_ids, out
+
+
 def segment_sum_sorted(values, seg_ids, *, num_segments: int):
     """Segment sums ``[N, ...]`` on the tensors' device. Launches on the
     current stream and does not synchronise."""
@@ -196,14 +214,7 @@ def segment_sum_sorted(values, seg_ids, *, num_segments: int):
     e = values.shape[0]
     rest = tuple(values.shape[1:])
     d = math.prod(rest)
-    flat = values.reshape(e, d)
-    if flat.stride() != (d, 1):
-        flat = flat.contiguous()
-    if seg_ids.dtype == torch.int64:  # ids outside [0, N) stay outside
-        seg_ids = torch.where((seg_ids >= 0) & (seg_ids < n), seg_ids,
-                              -1).to(torch.int32)
-    seg_ids = seg_ids.contiguous()
-    out = torch.zeros((n, d), dtype=torch.float32, device=values.device)
+    flat, seg_ids, out = kernel_operands(values, seg_ids, n)
     if e == 0 or d == 0 or n == 0:
         return out.reshape((n,) + rest)
     ptr = flat.data_ptr()

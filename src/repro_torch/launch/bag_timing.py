@@ -54,13 +54,14 @@ import time
 
 import torch
 
+from .mesh import HW
+
 N_ITEMS, DIM = 100_000_000, 18  # configs/din.py: n_items, embed_dim
 SERVED_BAGS = 512  # launch/serve.py --arch din --batch 512
 BULK_BAGS = 262_144  # serve_bulk
 SEQ_LEN = 100
 ROTATING_SEEDS = (1, 2, 3, 4)
 BAG_TOL = 2e-3  # the reference's embedding-bag test tolerance
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def stream_batch(n_rows, bags, seed, step=0):
@@ -159,7 +160,7 @@ def time_batches(table, batches, reps, plain=True):
         ids, mask = batches[0]
         rec["plain_ms"] = cuda_ms(
             lambda: eb.embedding_bag_ref(table, ids, mask), reps=1)
-    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    rec["bound_ms"] = rec["bytes"] / HW.HBM_BW * 1e3
     rec["bound_by"] = "bytes"
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     return rec

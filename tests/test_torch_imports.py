@@ -19,6 +19,12 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import glob, importlib.util, os
+for path in sorted(glob.glob(os.path.join("examples", "torch", "*.py"))):
+    spec = importlib.util.spec_from_file_location(
+        "example_" + os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -34,7 +40,8 @@ def import_report():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([SRC, ROOT])
     r = subprocess.run([sys.executable, "-c", IMPORT_SCRIPT],
-                       capture_output=True, text=True, env=env, timeout=300)
+                       capture_output=True, text=True, env=env, timeout=300,
+                       cwd=ROOT)
     assert r.returncode == 0, f"stderr:\n{r.stderr[-3000:]}"
     return json.loads(r.stdout.strip().splitlines()[-1])
 
@@ -102,6 +109,13 @@ def test_no_jax_and_no_reference_package(import_report):
     "repro_torch.traffic", "repro_torch.traffic.arrivals",
     "repro_torch.traffic.loadgen", "repro_torch.traffic.slo",
     "repro_torch.traffic.tenancy", "repro_torch.traffic.scoring",
+    "repro_torch.launch.mesh", "repro_torch.launch.op_census",
+    "repro_torch.launch.dryrun",
+    os.path.join("examples", "torch", "quickstart.py"),
+    os.path.join("examples", "torch", "lcc_distributed.py"),
+    os.path.join("examples", "torch", "serve_lm.py"),
+    os.path.join("examples", "torch", "train_lm.py"),
+    os.path.join("examples", "torch", "din_ctr.py"),
 ])
 def test_submodule_was_imported(import_report, name):
     assert name in import_report["imported"]
@@ -112,13 +126,18 @@ def test_port_sources_name_no_jax_import():
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     hits = []
-    for base, _, files in os.walk(os.path.join(SRC, "repro_torch")):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(base, f)
-                with open(path) as fh:
-                    if pat.search(fh.read()):
-                        hits.append(path)
+    scanned = 0
+    for top in (os.path.join(SRC, "repro_torch"),
+                os.path.join(ROOT, "examples", "torch")):
+        for base, _, files in os.walk(top):
+            for f in files:
+                if f.endswith(".py"):
+                    scanned += 1
+                    path = os.path.join(base, f)
+                    with open(path) as fh:
+                        if pat.search(fh.read()):
+                            hits.append(path)
+    assert scanned > 5
     with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
         if pat.search(fh.read()):
             hits.append("chip_smoke.py")
