@@ -26,6 +26,11 @@ one stream. On a card both are hand-written CUDA kernels and nothing in the
 rounds loop waits for the device; the first sync is the final ``.cpu()``. On
 the CPU the same rounds run through the kernels' plain versions.
 
+Each phase of an epoch is a span of ``obs.trace`` (``lcc.epoch`` over the
+call; inside it ``lcc.index``, one ``lcc.round`` a round, ``lcc.scores`` and
+``lcc.to_host``): no-ops unless a tracer is installed or ``torch.profiler``
+records, where they name the host's phase beside the device's work.
+
 ``_epoch_plain_acc`` (``plain=True``) is the padded route the engine is held
 against: per round the fetched rows are copied, at full width W, into a
 combined ``[local | cache | fetched]`` buffer, and the round's edge slots
@@ -43,8 +48,9 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import epoch_count as ec
+from ..obs import trace as obs_trace
 from .intersect import count_bsearch_torch, count_pairwise_torch, regime_rule
-from .rma import DeviceLCCProblem, ShardedLCCProblem
+from .rma import ID_BYTES, DeviceLCCProblem, ShardedLCCProblem
 
 __all__ = ["lcc_pipelined", "run_distributed_lcc"]
 
@@ -59,17 +65,21 @@ def _epoch_acc(prob: DeviceLCCProblem, method: str) -> torch.Tensor:
     """One epoch over all rounds by index; returns S, int32 ``[p * (n_loc +
     1)]`` (the phantom row of each rank stays 0)."""
     dev = prob.rows_ext.device
-    index = ec.epoch_index(prob)
-    acc = torch.zeros(prob.p * (prob.n_loc + 1), dtype=torch.int32,
-                      device=dev)
-    landing = [torch.empty(max(1, prob.land_ids), dtype=torch.int32,
-                           device=dev) for _ in range(2)]
-    ec.epoch_land(prob, index, 0, landing[0])
+    with obs_trace.span("lcc.index"):
+        index = ec.epoch_index(prob)
+        acc = torch.zeros(prob.p * (prob.n_loc + 1), dtype=torch.int32,
+                          device=dev)
+        landing = [torch.empty(max(1, prob.land_ids), dtype=torch.int32,
+                               device=dev) for _ in range(2)]
+        ec.epoch_land(prob, index, 0, landing[0])
     for r in range(prob.n_rounds):
-        # double buffering: land the next round before this round's count
-        if r + 1 < prob.n_rounds:
-            ec.epoch_land(prob, index, r + 1, landing[(r + 1) % 2])
-        ec.epoch_count(prob, index, r, landing[r % 2], acc, method=method)
+        with obs_trace.span("lcc.round", r=r):
+            # double buffering: land the next round before this round's
+            # count
+            if r + 1 < prob.n_rounds:
+                ec.epoch_land(prob, index, r + 1, landing[(r + 1) % 2])
+            ec.epoch_count(prob, index, r, landing[r % 2], acc,
+                           method=method)
     return acc
 
 
@@ -109,39 +119,44 @@ def _epoch_plain_acc(prob: DeviceLCCProblem, method: str) -> torch.Tensor:
             count_bsearch_torch(rows_a, rows_b, sentinel),
         )
 
-    deg_ext = torch.cat(
-        [prob.degrees, prob.degrees.new_zeros((p, 1))], dim=1
-    ).reshape(-1)
+    with obs_trace.span("lcc.index"):
+        deg_ext = torch.cat(
+            [prob.degrees, prob.degrees.new_zeros((p, 1))], dim=1
+        ).reshape(-1)
 
-    # combined row-index space per rank: [local+phantom | cache | fetched]
-    n_comb = n_loc + 1 + c + p * s_max
-    combined = torch.empty((p, n_comb, w), dtype=rows_ext.dtype, device=dev)
-    combined[:, : n_loc + 1] = rows_ext
-    combined[:, n_loc + 1 : n_loc + 1 + c] = prob.cache_rows
-    fetch_region = combined[:, n_loc + 1 + c :].view(p, p, s_max, w)
-    combined_flat = combined.view(p * n_comb, w)
-    comb_base = rank_base * n_comb
+        # combined row-index space per rank: [local+phantom | cache |
+        # fetched]
+        n_comb = n_loc + 1 + c + p * s_max
+        combined = torch.empty((p, n_comb, w), dtype=rows_ext.dtype,
+                               device=dev)
+        combined[:, : n_loc + 1] = rows_ext
+        combined[:, n_loc + 1 : n_loc + 1 + c] = prob.cache_rows
+        fetch_region = combined[:, n_loc + 1 + c :].view(p, p, s_max, w)
+        combined_flat = combined.view(p * n_comb, w)
+        comb_base = rank_base * n_comb
 
-    acc = torch.zeros(p * (n_loc + 1), dtype=torch.int32, device=dev)
-    slab = max(1, _PAIR_SLAB_BYTES // (4 * w))
-    fetched_cur = fetch(0)
+        acc = torch.zeros(p * (n_loc + 1), dtype=torch.int32, device=dev)
+        slab = max(1, _PAIR_SLAB_BYTES // (4 * w))
+        fetched_cur = fetch(0)
     for r in range(n_rounds):
-        # land this round's rows, then start the next round's fetch before
-        # this round's compute (one in-flight fetch buffer at a time)
-        fetch_region.copy_(fetched_cur)
-        fetched_cur = fetch(min(r + 1, n_rounds - 1))
-        sl = slice(r * e_chunk, (r + 1) * e_chunk)
-        eu = (prob.edge_u[:, sl] + local_base).reshape(-1)
-        evc = (prob.edge_vc[:, sl] + comb_base).reshape(-1)
-        msk = prob.edge_mask[:, sl].reshape(-1)
-        for lo in range(0, eu.numel(), slab):
-            eu_s = eu[lo : lo + slab]
-            rows_a = rows_flat.index_select(0, eu_s)
-            rows_b = combined_flat.index_select(0, evc[lo : lo + slab])
-            cnt = count(rows_a, rows_b, deg_ext[eu_s])
-            acc.index_add_(
-                0, eu_s, torch.where(msk[lo : lo + slab], cnt, 0)
-            )
+        with obs_trace.span("lcc.round", r=r):
+            # land this round's rows, then start the next round's fetch
+            # before this round's compute (one in-flight fetch buffer at a
+            # time)
+            fetch_region.copy_(fetched_cur)
+            fetched_cur = fetch(min(r + 1, n_rounds - 1))
+            sl = slice(r * e_chunk, (r + 1) * e_chunk)
+            eu = (prob.edge_u[:, sl] + local_base).reshape(-1)
+            evc = (prob.edge_vc[:, sl] + comb_base).reshape(-1)
+            msk = prob.edge_mask[:, sl].reshape(-1)
+            for lo in range(0, eu.numel(), slab):
+                eu_s = eu[lo : lo + slab]
+                rows_a = rows_flat.index_select(0, eu_s)
+                rows_b = combined_flat.index_select(0, evc[lo : lo + slab])
+                cnt = count(rows_a, rows_b, deg_ext[eu_s])
+                acc.index_add_(
+                    0, eu_s, torch.where(msk[lo : lo + slab], cnt, 0)
+                )
     return acc
 
 
@@ -166,21 +181,45 @@ def lcc_pipelined(
     float32) as numpy. ``prob`` is the host problem (copied to ``device``
     first) or its ``to_device`` view, which must already lie on ``device``.
     ``plain=True`` runs the padded plain route instead (any device).
+
+    With a tracer installed, the ``lcc.epoch`` span carries the epoch's
+    shape and, on a CUDA device, ``device_ms``: the device time from the
+    epoch's first enqueued work to its last, by two CUDA events.
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
-    dev = resolve_device(device)
-    if isinstance(prob, ShardedLCCProblem):
-        prob = prob.to_device(dev)
-    elif prob.device.type != dev.type or (
-        dev.index is not None and prob.device.index != dev.index
-    ):
-        raise ValueError(
-            f"problem lies on {prob.device}, engine asked for {dev}"
-        )
-    acc = (_epoch_plain_acc if plain else _epoch_acc)(prob, method)
-    t, lcc = _scores(prob, acc)
-    return t.cpu().numpy(), lcc.cpu().numpy()
+    traced = obs_trace.get_tracer() is not None
+    with obs_trace.span("lcc.epoch") as epoch:
+        dev = resolve_device(device)
+        if isinstance(prob, ShardedLCCProblem):
+            prob = prob.to_device(dev)
+        elif prob.device.type != dev.type or (
+            dev.index is not None and prob.device.index != dev.index
+        ):
+            raise ValueError(
+                f"problem lies on {prob.device}, engine asked for {dev}"
+            )
+        start = None
+        if traced:
+            epoch.set(rounds=prob.n_rounds, method=method,
+                      route="plain" if plain else "kernels",
+                      landed_ids=prob.landed_ids,
+                      landed_bytes=ID_BYTES * prob.landed_ids)
+            if dev.type == "cuda":
+                stream = torch.cuda.current_stream(dev)
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record(stream)
+        acc = (_epoch_plain_acc if plain else _epoch_acc)(prob, method)
+        with obs_trace.span("lcc.scores"):
+            t, lcc = _scores(prob, acc)
+        with obs_trace.span("lcc.to_host"):
+            out = t.cpu().numpy(), lcc.cpu().numpy()
+        if start is not None:
+            end.record(stream)
+            end.synchronize()
+            epoch.set(device_ms=start.elapsed_time(end))
+    return out
 
 
 def run_distributed_lcc(

@@ -483,17 +483,18 @@ def build_static_degree_cache(
     score_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
 ) -> StaticDegreeCache:
     """Pick cache residents by score (default: degree centrality, §III-B2)."""
-    n = degrees.shape[0]
-    c = min(capacity_rows, n)
-    score = degrees if score_fn is None else score_fn(degrees)
-    if c <= 0:
-        return StaticDegreeCache(vertex_ids=np.zeros((0,), np.int64))
-    # stable tie-break by vertex id: equal-score residency must not
-    # reshuffle between calls, or streaming rescores would count tie
-    # noise as drift (power-law graphs have large tie classes).
-    order = np.lexsort((np.arange(n), score))
-    top = order[n - c :]
-    return StaticDegreeCache(vertex_ids=np.sort(top.astype(np.int64)))
+    with obs_trace.span("cache.build"):
+        n = degrees.shape[0]
+        c = min(capacity_rows, n)
+        score = degrees if score_fn is None else score_fn(degrees)
+        if c <= 0:
+            return StaticDegreeCache(vertex_ids=np.zeros((0,), np.int64))
+        # stable tie-break by vertex id: equal-score residency must not
+        # reshuffle between calls, or streaming rescores would count tie
+        # noise as drift (power-law graphs have large tie classes).
+        order = np.lexsort((np.arange(n), score))
+        top = order[n - c :]
+        return StaticDegreeCache(vertex_ids=np.sort(top.astype(np.int64)))
 
 
 # --------------------------------------------------------------------------

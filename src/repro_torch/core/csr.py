@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..obs import trace as obs_trace
+
 __all__ = [
     "CSRGraph",
     "from_edges",
@@ -80,25 +82,26 @@ def from_edges(
     Self-loops are dropped and multi-edges deduplicated (paper §II-A
     considers simple graphs). For ``undirected`` both directions are stored.
     """
-    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-    mask = edges[:, 0] != edges[:, 1]
-    edges = edges[mask]
-    if undirected and edges.size:
-        edges = np.concatenate([edges, edges[:, ::-1]], axis=0)
-    if edges.size:
-        # dedup via linearized key
-        key = edges[:, 0] * n + edges[:, 1]
-        key = np.unique(key)
-        src = (key // n).astype(np.int64)
-        dst = (key % n).astype(np.int32)
-    else:
-        src = np.zeros((0,), np.int64)
-        dst = np.zeros((0,), np.int32)
-    counts = np.bincount(src, minlength=n).astype(np.int64)
-    offsets = np.zeros(n + 1, np.int64)
-    np.cumsum(counts, out=offsets[1:])
-    # unique(key) is sorted, so rows come out sorted ascending.
-    return CSRGraph(offsets=offsets, adjacencies=dst, n=n)
+    with obs_trace.span("csr.from_edges"):
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        mask = edges[:, 0] != edges[:, 1]
+        edges = edges[mask]
+        if undirected and edges.size:
+            edges = np.concatenate([edges, edges[:, ::-1]], axis=0)
+        if edges.size:
+            # dedup via linearized key
+            key = edges[:, 0] * n + edges[:, 1]
+            key = np.unique(key)
+            src = (key // n).astype(np.int64)
+            dst = (key % n).astype(np.int32)
+        else:
+            src = np.zeros((0,), np.int64)
+            dst = np.zeros((0,), np.int32)
+        counts = np.bincount(src, minlength=n).astype(np.int64)
+        offsets = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        # unique(key) is sorted, so rows come out sorted ascending.
+        return CSRGraph(offsets=offsets, adjacencies=dst, n=n)
 
 
 def remove_low_degree(csr: CSRGraph) -> Tuple[CSRGraph, np.ndarray]:

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import trace as obs_trace
 from .cache import CacheStats, ClampiCache, NetworkModel, StaticDegreeCache
 from .csr import CSRGraph, to_padded_rows
 from .partition import HubPartition, Partition1D, partition_1d
@@ -75,6 +76,9 @@ class DeviceLCCProblem:
     # of the engine's packed landing buffer, known on the host so the epoch
     # never reads it back from the device
     land_ids: int
+    # ids the valid prefixes of all the epoch's pulled rows hold: what one
+    # epoch lands, all rounds and ranks together (4 B an id)
+    landed_ids: int
 
     @property
     def sentinel(self) -> int:
@@ -183,22 +187,25 @@ class ShardedLCCProblem:
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        return DeviceLCCProblem(
-            rows_ext=dev(self.rows_ext),
-            degrees=dev(self.degrees),
-            edge_u=dev(self.edge_u),
-            edge_vc=dev(self.edge_vc),
-            edge_mask=dev(self.edge_mask),
-            serve_idx=dev(self.serve_idx),
-            cache_rows=dev(self.cache_rows),
-            n=self.n,
-            p=self.p,
-            n_loc=self.n_loc,
-            e_max=self.e_max,
-            n_rounds=self.n_rounds,
-            s_max=self.s_max,
-            land_ids=int(self.pulled_ids_per_round().max(initial=0)),
-        )
+        with obs_trace.span("schedule.upload"):
+            pulled = self.pulled_ids_per_round()
+            return DeviceLCCProblem(
+                rows_ext=dev(self.rows_ext),
+                degrees=dev(self.degrees),
+                edge_u=dev(self.edge_u),
+                edge_vc=dev(self.edge_vc),
+                edge_mask=dev(self.edge_mask),
+                serve_idx=dev(self.serve_idx),
+                cache_rows=dev(self.cache_rows),
+                n=self.n,
+                p=self.p,
+                n_loc=self.n_loc,
+                e_max=self.e_max,
+                n_rounds=self.n_rounds,
+                s_max=self.s_max,
+                land_ids=int(pulled.max(initial=0)),
+                landed_ids=int(pulled.sum()),
+            )
 
     def pulled_ids_per_round(self) -> np.ndarray:
         """[NR] ids of the valid prefixes of the rows pulled in each round,
@@ -208,8 +215,25 @@ class ShardedLCCProblem:
         pulled = deg[np.arange(self.p)[:, None, None, None], self.serve_idx]
         return pulled.sum(axis=(0, 2, 3))  # [src, NR, dst, S] -> [NR]
 
+    def slot_counts(self) -> Dict[str, int]:
+        """Edge slots of the schedule by where v's row comes from, all
+        ranks and rounds together: ``local`` (v on the slot's own rank),
+        ``cached`` (the replicated degree cache), ``pulled`` (landed from
+        its owner in the slot's round), and ``padded`` (no edge). Read
+        from the combined row index, whose layout this module owns."""
+        vc = self.edge_vc[self.edge_mask].astype(np.int64)
+        base_fetch = self.n_loc + 1 + self.cache_rows.shape[0]
+        local = int(np.count_nonzero(vc <= self.n_loc))
+        pulled = int(np.count_nonzero(vc >= base_fetch))
+        return {"local": local, "cached": int(vc.size) - local - pulled,
+                "pulled": pulled,
+                "padded": int(self.edge_mask.size - vc.size)}
+
     def comm_bytes_per_round(self) -> np.ndarray:
-        """[p, NR] payload bytes each device *receives* per round."""
+        """[p, NR] payload bytes each device *receives* per round, rows
+        counted at the padded width W: the model of a transport that ships
+        whole padded rows. The engine lands valid prefixes only
+        (``pulled_ids_per_round``, ``DeviceLCCProblem.landed_ids``)."""
         # serve_idx[q, r, k] = rows q sends to k; received-by-k = sum over q
         valid = self.serve_idx < self.n_loc
         per = valid.sum(axis=-1) * self.width * ID_BYTES  # [p(send), NR, p(dst)]
@@ -447,146 +471,159 @@ def build_sharded_problem(
     contract holder, e.g. ``partition_hub``) to compile against
     variable cuts. Per-device row slabs are sized to the LARGEST block
     so the ``[p, n_loc, ...]`` layout stays rectangular."""
-    n_rounds_requested = n_rounds
-    if part is None:
-        part = partition_1d(csr.n, p)
-    n_loc = int(np.max(part.sizes(), initial=0))
-    w = int(width if width is not None else max(csr.max_degree, 1))
-    sent = csr.n
-    cache_ids = (
-        cache.vertex_ids if cache is not None else np.zeros((0,), np.int64)
-    )
-    c = cache_ids.shape[0]
+    with obs_trace.span("schedule.build") as build:
+        n_rounds_requested = n_rounds
+        if part is None:
+            part = partition_1d(csr.n, p)
+        n_loc = int(np.max(part.sizes(), initial=0))
+        w = int(width if width is not None else max(csr.max_degree, 1))
+        sent = csr.n
+        cache_ids = (
+            cache.vertex_ids if cache is not None else np.zeros((0,), np.int64)
+        )
+        c = cache_ids.shape[0]
 
-    # local padded rows (+ phantom row) and true degrees, per device
-    rows_ext = np.full((p, n_loc + 1, w), sent, np.int32)
-    degrees = np.zeros((p, n_loc), np.int32)
-    deg_all = csr.degrees
-    for k in range(p):
-        lo, hi = part.lo(k), part.hi(k)
-        if hi > lo:
-            vs = np.arange(lo, hi)
-            rows_ext[k, : hi - lo] = to_padded_rows(
-                csr, w, sentinel=sent, vertices=vs
+        with obs_trace.span("schedule.rows"):
+            # local padded rows (+ phantom row) and true degrees, per device
+            rows_ext = np.full((p, n_loc + 1, w), sent, np.int32)
+            degrees = np.zeros((p, n_loc), np.int32)
+            deg_all = csr.degrees
+            for k in range(p):
+                lo, hi = part.lo(k), part.hi(k)
+                if hi > lo:
+                    vs = np.arange(lo, hi)
+                    rows_ext[k, : hi - lo] = to_padded_rows(
+                        csr, w, sentinel=sent, vertices=vs
+                    )
+                    degrees[k, : hi - lo] = deg_all[lo:hi]
+
+            cache_rows = (
+                to_padded_rows(csr, w, sentinel=sent, vertices=cache_ids)
+                if c
+                else np.zeros((0, w), np.int32)
             )
-            degrees[k, : hi - lo] = deg_all[lo:hi]
 
-    cache_rows = (
-        to_padded_rows(csr, w, sentinel=sent, vertices=cache_ids)
-        if c
-        else np.zeros((0, w), np.int32)
-    )
-    cache_slot_of = (
-        cache.slot_of if cache is not None else (lambda v: np.full(len(v), -1, np.int32))
-    )
+        with obs_trace.span("schedule.requests"):
+            cache_slot_of = (
+                cache.slot_of if cache is not None
+                else (lambda v: np.full(len(v), -1, np.int32))
+            )
 
-    # per-device worklists + per-round fetch sets
-    works = [_edge_worklist(csr, part, k) for k in range(p)]
-    e_max = max((u.size for u, _ in works), default=1) or 1
-    n_rounds = max(1, min(n_rounds, e_max))
-    e_chunk = -(-e_max // n_rounds)
-    e_max = e_chunk * n_rounds  # pad to a whole number of equal chunks
+            # per-device worklists + per-round fetch sets
+            works = [_edge_worklist(csr, part, k) for k in range(p)]
+            e_max = max((u.size for u, _ in works), default=1) or 1
+            n_rounds = max(1, min(n_rounds, e_max))
+            e_chunk = -(-e_max // n_rounds)
+            e_max = e_chunk * n_rounds  # pad to a whole number of equal chunks
 
-    # first pass: compute per (initiator, round, owner) request lists
-    # requests[k][r][q] = list of local row indices on q (order of first use)
-    requests: List[List[Dict[int, List[int]]]] = [
-        [dict() for _ in range(n_rounds)] for _ in range(p)
-    ]
-    # remember, per edge, how to find its row: (source, index)
-    edge_src_kind = [np.zeros(e_max, np.int8) for _ in range(p)]  # 0 loc 1 cache 2 fetch
-    edge_src_idx = [np.zeros(e_max, np.int64) for _ in range(p)]
-    for k in range(p):
-        u_l, v_g = works[k]
-        owners = part.owner(v_g)
-        slots = cache_slot_of(v_g)
-        pos_maps: List[Dict[Tuple[int, int], int]] = [
-            dict() for _ in range(n_rounds)
-        ]
-        for e in range(v_g.size):
-            r = e // e_chunk
-            v = int(v_g[e])
-            if owners[e] == k:
-                edge_src_kind[k][e] = 0
-                edge_src_idx[k][e] = v - part.lo(k)
-            elif slots[e] >= 0:
-                edge_src_kind[k][e] = 1
-                edge_src_idx[k][e] = slots[e]
-            else:
-                q = int(owners[e])
-                lst = requests[k][r].setdefault(q, [])
-                v_local = v - part.lo(q)
-                key = (q, v_local)
-                pm = pos_maps[r]
-                if dedup_rounds and key in pm:
-                    pos = pm[key]
-                else:
-                    pos = len(lst)
-                    lst.append(v_local)
-                    pm[key] = pos
-                edge_src_kind[k][e] = 2
-                edge_src_idx[k][e] = q * 10**9 + pos  # resolved after S_max known
+            # first pass: compute per (initiator, round, owner) request lists
+            # requests[k][r][q] = list of local row indices on q (order of
+            # first use)
+            requests: List[List[Dict[int, List[int]]]] = [
+                [dict() for _ in range(n_rounds)] for _ in range(p)
+            ]
+            # remember, per edge, how to find its row: (source, index)
+            # 0 loc 1 cache 2 fetch
+            edge_src_kind = [np.zeros(e_max, np.int8) for _ in range(p)]
+            edge_src_idx = [np.zeros(e_max, np.int64) for _ in range(p)]
+            for k in range(p):
+                u_l, v_g = works[k]
+                owners = part.owner(v_g)
+                slots = cache_slot_of(v_g)
+                pos_maps: List[Dict[Tuple[int, int], int]] = [
+                    dict() for _ in range(n_rounds)
+                ]
+                for e in range(v_g.size):
+                    r = e // e_chunk
+                    v = int(v_g[e])
+                    if owners[e] == k:
+                        edge_src_kind[k][e] = 0
+                        edge_src_idx[k][e] = v - part.lo(k)
+                    elif slots[e] >= 0:
+                        edge_src_kind[k][e] = 1
+                        edge_src_idx[k][e] = slots[e]
+                    else:
+                        q = int(owners[e])
+                        lst = requests[k][r].setdefault(q, [])
+                        v_local = v - part.lo(q)
+                        key = (q, v_local)
+                        pm = pos_maps[r]
+                        if dedup_rounds and key in pm:
+                            pos = pm[key]
+                        else:
+                            pos = len(lst)
+                            lst.append(v_local)
+                            pm[key] = pos
+                        edge_src_kind[k][e] = 2
+                        # resolved after S_max known
+                        edge_src_idx[k][e] = q * 10**9 + pos
 
-    s_max = 1
-    for k in range(p):
-        for r in range(n_rounds):
-            for q, lst in requests[k][r].items():
-                s_max = max(s_max, len(lst))
+        with obs_trace.span("schedule.serve"):
+            s_max = 1
+            for k in range(p):
+                for r in range(n_rounds):
+                    for q, lst in requests[k][r].items():
+                        s_max = max(s_max, len(lst))
 
-    # serve lists: serve_idx[q, r, k] = rows q sends to k in round r
-    serve_idx = np.full((p, n_rounds, p, s_max), n_loc, np.int32)
-    for k in range(p):
-        for r in range(n_rounds):
-            for q, lst in requests[k][r].items():
-                serve_idx[q, r, k, : len(lst)] = lst
+            # serve lists: serve_idx[q, r, k] = rows q sends to k in round r
+            serve_idx = np.full((p, n_rounds, p, s_max), n_loc, np.int32)
+            for k in range(p):
+                for r in range(n_rounds):
+                    for q, lst in requests[k][r].items():
+                        serve_idx[q, r, k, : len(lst)] = lst
 
-    # finalize combined indices
-    base_cache = n_loc + 1
-    base_fetch = n_loc + 1 + c
-    edge_u = np.full((p, e_max), n_loc, np.int32)
-    edge_vc = np.full((p, e_max), n_loc, np.int32)  # phantom
-    edge_mask = np.zeros((p, e_max), bool)
-    for k in range(p):
-        u_l, v_g = works[k]
-        ne = u_l.size
-        edge_u[k, :ne] = u_l
-        edge_mask[k, :ne] = True
-        kind = edge_src_kind[k]
-        idx = edge_src_idx[k]
-        vc = np.full(e_max, n_loc, np.int64)
-        loc = kind == 0
-        vc[: ne][loc[:ne]] = idx[:ne][loc[:ne]]
-        cch = kind == 1
-        vc[: ne][cch[:ne]] = base_cache + idx[:ne][cch[:ne]]
-        ftc = kind == 2
-        q = idx // 10**9
-        pos = idx % 10**9
-        vc[: ne][ftc[:ne]] = base_fetch + (q * s_max + pos)[:ne][ftc[:ne]]
-        edge_vc[k] = vc.astype(np.int32)
+        with obs_trace.span("schedule.finalize"):
+            # finalize combined indices
+            base_cache = n_loc + 1
+            base_fetch = n_loc + 1 + c
+            edge_u = np.full((p, e_max), n_loc, np.int32)
+            edge_vc = np.full((p, e_max), n_loc, np.int32)  # phantom
+            edge_mask = np.zeros((p, e_max), bool)
+            for k in range(p):
+                u_l, v_g = works[k]
+                ne = u_l.size
+                edge_u[k, :ne] = u_l
+                edge_mask[k, :ne] = True
+                kind = edge_src_kind[k]
+                idx = edge_src_idx[k]
+                vc = np.full(e_max, n_loc, np.int64)
+                loc = kind == 0
+                vc[: ne][loc[:ne]] = idx[:ne][loc[:ne]]
+                cch = kind == 1
+                vc[: ne][cch[:ne]] = base_cache + idx[:ne][cch[:ne]]
+                ftc = kind == 2
+                q = idx // 10**9
+                pos = idx % 10**9
+                vc[: ne][ftc[:ne]] = (
+                    base_fetch + (q * s_max + pos)[:ne][ftc[:ne]])
+                edge_vc[k] = vc.astype(np.int32)
 
-    prob = ShardedLCCProblem(
-        rows_ext=rows_ext,
-        degrees=degrees,
-        edge_u=edge_u,
-        edge_vc=edge_vc,
-        edge_mask=edge_mask,
-        serve_idx=serve_idx,
-        cache_rows=cache_rows,
-        n=csr.n,
-        p=p,
-        width=w,
-        n_loc=n_loc,
-        e_max=e_max,
-        n_rounds=n_rounds,
-        s_max=s_max,
-        cache_ids=cache_ids,
-        n_rounds_requested=n_rounds_requested,
-        dedup_rounds=dedup_rounds,
-        works=works,
-    )
-    # the partition rides along as a plain attribute (not a dataclass
-    # field, so assert_problems_equal keeps comparing arrays only):
-    # apply_delta re-derives worklist ownership from it.
-    prob.part = part
+            prob = ShardedLCCProblem(
+                rows_ext=rows_ext,
+                degrees=degrees,
+                edge_u=edge_u,
+                edge_vc=edge_vc,
+                edge_mask=edge_mask,
+                serve_idx=serve_idx,
+                cache_rows=cache_rows,
+                n=csr.n,
+                p=p,
+                width=w,
+                n_loc=n_loc,
+                e_max=e_max,
+                n_rounds=n_rounds,
+                s_max=s_max,
+                cache_ids=cache_ids,
+                n_rounds_requested=n_rounds_requested,
+                dedup_rounds=dedup_rounds,
+                works=works,
+            )
+            # the partition rides along as a plain attribute (not a dataclass
+            # field, so assert_problems_equal keeps comparing arrays only):
+            # apply_delta re-derives worklist ownership from it.
+            prob.part = part
+        if obs_trace.get_tracer() is not None:
+            build.set(**prob.slot_counts())
     return prob
 
 

@@ -5,11 +5,12 @@
 
 Builds the R-MAT problem, warms the engine up, then traces one epoch with
 ``torch.profiler`` and prints one JSON line: the card, the epoch's wall
-time, the summed device time of every kernel, the share of the wall time in
-which the device ran nothing (idle share), the kernels by device time, and
-the epoch's peak device memory beyond the problem's own tensors (from the
-untraced warm-up). ``--plain`` profiles the padded plain route instead of
-the kernels. Needs a CUDA device.
+time, the summed device time of every kernel, the kernels by device time,
+and the epoch's peak device memory beyond the problem's own tensors (from
+the untraced warm-up). The device's idle share is the benchmark's
+``device_idle_share`` (``gpubench/``): the union of the device's activity
+over a window of epochs, not a sum over one. ``--plain`` profiles the
+padded plain route instead of the kernels. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -84,7 +85,6 @@ def main(argv=None) -> int:
         "route": "plain" if args.plain else "kernels",
         "directed_edges": csr.m, "width": csr.max_degree,
         "epoch_wall_ms_traced": wall_ms, "device_busy_ms": busy_ms,
-        "idle_share": max(0.0, 1.0 - busy_ms / wall_ms) if rows else None,
         "epoch_extra_peak_bytes": extra_peak,
         "kernels": rows[: args.top],
     }))

@@ -1,33 +1,46 @@
-"""Near-zero-overhead span tracer with a Chrome-trace-event exporter.
+"""Near-zero-overhead span tracer with a Chrome-trace-event exporter, and
+the one source of the port's ``torch.profiler`` ranges.
 
 The paper's headline numbers are *attribution* claims — caching cuts
 total running time by up to 73%, and communication vs. computation
 decomposes per rank. Reproducing those breakdowns needs a time
 dimension on top of the counter ledgers: which phase (``fetch_rows``,
-``all_to_all``, ``intersect_kernel``, ...) spent the wall clock, on
-which rank, inside which enclosing unit of work.
+``all_to_all``, ``lcc.round``, ...) spent the wall clock, on which rank,
+inside which enclosing unit of work.
 
 Design constraints, in order:
 
 1. **Disabled is the default and must cost ~nothing.** ``span()`` with
-   no tracer installed is one module-global load, a ``None`` check, and
-   a shared no-op context manager — no allocation, no clock read. The
-   serving benchmark measures this (< 3% of end-to-end wall is the
-   gate; in practice it is orders of magnitude below that).
-2. **Spans are nestable and per-rank.** Rank maps to the Chrome trace
+   no tracer installed and no profiler recording is one module-global
+   load, a ``None`` check, one read of the profiler's flag and a shared
+   no-op context manager — no allocation, no clock read. The serving
+   benchmark measures this (< 3% of end-to-end wall is the gate; in
+   practice it is orders of magnitude below that).
+2. **The profiler sees every span.** While ``torch.profiler`` records,
+   ``span()`` also opens a profiler range of the same name, on the
+   profiler's clock, with or without an installed ``Tracer``: the device
+   trace then shows which phase of the program the host was in during
+   each gap of the device. The range is ``_RecordFunctionFast`` (2.2 µs
+   a span on an H100 machine's host, torch 2.11), never
+   ``record_function`` (13.3 µs there, and 10.2 µs even with the
+   profiler off). Both that class and the flag
+   (``torch.autograd.profiler._is_profiler_enabled``) are private; if
+   either is missing from the installed torch, no range is opened.
+3. **Spans are nestable and per-rank.** Rank maps to the Chrome trace
    ``tid``, so Perfetto renders one swim-lane per rank; nesting follows
    ``with`` scoping, which makes the exported span tree well-nested by
-   construction (the validator checks it anyway).
-3. **The export is a standard Chrome trace** (``{"traceEvents": [...]}``
-   with ``ph: "X"`` complete events, microsecond timestamps): open it
-   at https://ui.perfetto.dev or ``chrome://tracing`` unmodified.
+   construction (the validator checks it anyway). Profiler ranges nest
+   the same way, on the calling thread.
+4. **The export is a standard Chrome trace** (``{"traceEvents": [...]}``
+   with ``ph: "X"`` complete events, microsecond timestamps of the
+   host's ``perf_counter``): open it at https://ui.perfetto.dev or
+   ``chrome://tracing`` unmodified.
 
-Taxonomy (the phase names instrumentation uses — see
-docs/observability.md for the full map):
+Taxonomy (the phase names instrumentation uses):
 
     fetch_rows        rank-indexed row transport (``ShardedRuntime``)
     all_to_all        the SPMD collective + fused on-device intersect
-    intersect_kernel  pair-intersection compute (loop mode, streaming)
+    intersect_kernel  pair-intersection compute (serving, streaming, SPMD)
     cache_admit       ClampiCache admission   (fine mode, instant)
     cache_evict       ClampiCache eviction    (fine mode, instant)
     cache_invalidate  coherence fanout through the runtime
@@ -39,6 +52,29 @@ docs/observability.md for the full map):
     spmd_patch        resident-buffer drift patched to device (H2D)
     spmd_overlap_wait the reconciliation barrier of a pipelined unit
 
+The static LCC epoch (``core/async_engine.py::lcc_pipelined``):
+
+    lcc.epoch         one whole call; args ``rounds``, ``method``,
+                      ``route``, ``landed_ids``, ``landed_bytes`` and,
+                      on a CUDA device with a tracer, ``device_ms``
+    lcc.index         ``epoch_index``, the accumulators and landing
+                      buffers, round 0's landing
+    lcc.round         one round's landing and count (arg ``r``)
+    lcc.scores        Eq. 2 from the accumulated counts
+    lcc.to_host       ``t`` and ``lcc`` copied back to the host
+
+Its set-up, once a graph:
+
+    csr.from_edges    the edge list deduplicated into a CSR graph
+    cache.build       the static degree cache's residents chosen
+    schedule.build    ``build_sharded_problem``, with the children
+    schedule.rows       padded local and cache rows
+    schedule.requests   the per-edge pass: local, cached or pulled
+    schedule.serve      the serve lists
+    schedule.finalize   the combined row indices
+    schedule.upload   ``ShardedLCCProblem.to_device``
+    clampi_sim        ``simulate_rma_lcc``: the CLaMPI cache simulation
+
 Fine mode (``enable_tracing(fine=True)``) additionally emits per-entry
 ``cache_admit``/``cache_evict`` instants from inside the cache — useful
 for cache forensics, too hot to leave on for long runs.
@@ -47,7 +83,17 @@ from __future__ import annotations
 
 import json
 import time
+import types
 from typing import Any, Dict, List, Optional
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+    from torch.autograd import profiler as _profiler
+
+    _profiler._is_profiler_enabled  # the flag read on every span()
+except (ImportError, AttributeError):  # a torch without them: no ranges
+    _RecordFunctionFast = None
+    _profiler = types.SimpleNamespace(_is_profiler_enabled=False)
 
 __all__ = [
     "PHASES",
@@ -75,6 +121,20 @@ PHASES = (
     "spmd_pack",
     "spmd_patch",
     "spmd_overlap_wait",
+    "lcc.epoch",
+    "lcc.index",
+    "lcc.round",
+    "lcc.scores",
+    "lcc.to_host",
+    "csr.from_edges",
+    "cache.build",
+    "schedule.build",
+    "schedule.rows",
+    "schedule.requests",
+    "schedule.serve",
+    "schedule.finalize",
+    "schedule.upload",
+    "clampi_sim",
 )
 
 
@@ -96,10 +156,31 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+class _ProfilerRange:
+    """A profiler range alone: what ``span()`` returns while
+    ``torch.profiler`` records and no tracer is installed."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = _RecordFunctionFast(name)
+
+    def __enter__(self) -> "_ProfilerRange":
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rf.__exit__(*exc)
+        return False
+
+    def set(self, **args) -> None:
+        """Arguments go to the tracer's events only."""
+
+
 class _Span:
     """One live span: records a ``ph: "X"`` complete event on exit."""
 
-    __slots__ = ("_tracer", "name", "rank", "cat", "args", "_t0")
+    __slots__ = ("_tracer", "name", "rank", "cat", "args", "_t0", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, rank: int, cat: str,
                  args: Optional[Dict[str, Any]]):
@@ -116,11 +197,17 @@ class _Span:
         self.args.update(args)
 
     def __enter__(self) -> "_Span":
+        self._rf = None
+        if _profiler._is_profiler_enabled:
+            self._rf = _RecordFunctionFast(self.name)
+            self._rf.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         self._tracer._complete(self, self._t0, t1)
         return False
 
@@ -227,7 +314,7 @@ class Tracer:
         return {
             "traceEvents": meta + self.events,
             "displayTimeUnit": "ms",
-            "otherData": {"producer": "repro.obs.trace"},
+            "otherData": {"producer": "repro_torch.obs.trace"},
         }
 
     def export(self, path: str) -> None:
@@ -253,8 +340,9 @@ def _jsonable(v):
 
 # --------------------------------------------------------------------------
 # Module-level switchboard: the instrumentation hooks call these. With no
-# tracer installed, span() costs one global load + None check + returning
-# the shared _NULL_SPAN — the near-zero-overhead contract.
+# tracer installed and no profiler recording, span() costs one global load,
+# a None check, one read of the profiler's flag and returning the shared
+# _NULL_SPAN — the near-zero-overhead contract.
 # --------------------------------------------------------------------------
 _tracer: Optional[Tracer] = None
 
@@ -278,9 +366,13 @@ def get_tracer() -> Optional[Tracer]:
 
 
 def span(name: str, *, rank: int = -1, cat: str = "", **args):
-    """A context manager timing one phase (no-op when disabled)."""
+    """A context manager timing one phase: a tracer's span (and a profiler
+    range of the same name while ``torch.profiler`` records), a profiler
+    range alone, or the shared no-op."""
     t = _tracer
     if t is None:
+        if _profiler._is_profiler_enabled:
+            return _ProfilerRange(name)
         return _NULL_SPAN
     return t.span(name, rank=rank, cat=cat, **args)
 
