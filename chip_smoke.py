@@ -567,7 +567,7 @@ def parent_abi_errors(name, src, build):
         own = str(build.CSRC / "epoch_count.cu")
         want = {fn: c_params(own, fn) for fn in (
             "epoch_count_launch", "epoch_land_launch",
-            "epoch_count_stage_cap")}
+            "epoch_count_stage_cap", "epoch_count_tile_slots")}
     elif name == "segment_sum_sorted":
         want = {"segment_sum_sorted_launch": PARENT_SEGSUM_PARAMS}
     else:

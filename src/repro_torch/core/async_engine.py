@@ -183,8 +183,10 @@ def lcc_pipelined(
     ``plain=True`` runs the padded plain route instead (any device).
 
     With a tracer installed, the ``lcc.epoch`` span carries the epoch's
-    shape and, on a CUDA device, ``device_ms``: the device time from the
-    epoch's first enqueued work to its last, by two CUDA events.
+    shape, on the kernels' route the share of its slots counted by bitmap
+    (``bitmap_slot_share``) and, on a CUDA device, ``device_ms``: the device
+    time from the epoch's first enqueued work to its last, by two CUDA
+    events.
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
@@ -205,6 +207,8 @@ def lcc_pipelined(
                       route="plain" if plain else "kernels",
                       landed_ids=prob.landed_ids,
                       landed_bytes=ID_BYTES * prob.landed_ids)
+            if not plain:
+                epoch.set(bitmap_slot_share=ec.bitmap_slot_share(prob))
             if dev.type == "cuda":
                 stream = torch.cuda.current_stream(dev)
                 start, end = (torch.cuda.Event(enable_timing=True)

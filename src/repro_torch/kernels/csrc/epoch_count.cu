@@ -42,6 +42,34 @@
 // The tile's classing and counting are pair_intersect.cuh's (Tile,
 // tile_add, tile_count), shared with B6 (spmd_plane.cu).
 //
+// Hub runs by bitmap. Slots come in CSR order, so a hub u owns a run of
+// deg(u) consecutive slots, and a tile of 16 re-walks u's row for every one
+// of them (on the kron S18 epoch, 80% of the compares are such runs' merges
+// and searches: a chain of dependent loads each). The run table
+// (kernels/epoch_count.py::count_runs, built once a problem) lists pieces of
+// the runs worth a bitmap; a launch's first n_pieces blocks are piece blocks,
+// one a piece: clear a bitmap of [0, sentinel) in the dynamic shared memory,
+// set u's ids in it, then stream every slot's v row against it (one bit test
+// an id, coalesced loads, kPieceIlp in flight a lane) in work items of at
+// most kItemIds ids, so a long v row spreads over the block's warps; the
+// piece's hits go to acc[u] by one atomicAdd. The other blocks are tile
+// blocks as above, over the table's tiles (runs of at most kTile real slots
+// no piece covers) or, where the problem has no piece, over every kTile
+// slots of the round. A piece block takes the bitmap, rounded to 16 bytes,
+// and 16 B a thread for its slots, and the table keeps no piece where that
+// exceeds the stage the launch takes anyway or 24 KB (with which 8 blocks,
+// the thread limit, still fit an SM): a piece never costs a tile block
+// occupancy. At S18 it is 36 KB beside the 40 KB stage; at urand S19 it
+// would be 68 KB beside a 244-byte stage, and 186 pieces there (a rule
+// without this limit) took the epoch from 17.4 to 31.6 ms.
+// The constants were chosen on the H100, on the kron S18 epoch (40.4 ms
+// with no piece; PERF.md, B7): runs of at least 32 slots (16: 11.9 ms, 64:
+// 13.1, 128: 13.9), pieces of at most 256 (128: 11.6, 384: 12.2, 1,024:
+// 15.6), keep a run iff 4 * (bitmap clears and sets + ids streamed) <= 64 *
+// its hybrid compares (4: 17.7, 16: 12.6, 128 and above as 64), 8 ids in
+// flight a lane (4: 24.3, 16: 11.6) and items of 2,048 ids (1,024: 11.8):
+// 11.5 ms.
+//
 // Plain C interface (no PyTorch headers): the Python wrapper
 // (kernels/epoch_count.py) passes raw device pointers and the current
 // stream, and raises on a non-zero return.
@@ -62,6 +90,10 @@ constexpr int kGroup = 8;    // lanes of a light pair
 constexpr long long kLightWork = 256;
 constexpr long long kHeavyWork = 2048;
 constexpr int kStageCap = 10240;  // ids of a staged row: 40 KB of shared memory
+constexpr int kPieceIlp = 8;      // ids a lane of a piece block has in flight
+constexpr int kItemIds = 32 * kPieceIlp * 8;  // ids of a piece's work item
+// most shared memory a launch takes: above it the kernel needs an opt-in
+constexpr size_t kSmemCap = 48 << 10;
 
 struct CountArgs {
   const int* rows_flat;   // [p * (n_loc + 1), row_stride]
@@ -80,8 +112,121 @@ struct CountArgs {
   int p, n_loc, s_max;
   long long e_max, e_chunk;
   int round, method, stage_cap;
+  const long long* piece_e;  // [n_pieces] first slot (rank * e_max + ...)
+  const int* piece_n;        // [n_pieces] slots of each piece
+  int n_pieces;
+  const long long* tiles;  // [n_tiles] e * 32 + slots, or null
+  int bitmap_words;        // words of the bitmap, a multiple of 4
   int* acc;  // [p * (n_loc + 1)]
 };
+
+// a piece block's view of one of its slots: v's row, its valid length and
+// the index of its first work item
+struct PieceSlot {
+  const int* b;
+  int nb, first_item;
+};
+
+// v's row (b, nb) of a real slot by its combined index
+__device__ __forceinline__ void row_of_v(const CountArgs& args, int rank,
+                                         long long base, int vc,
+                                         const int*& b, int& nb) {
+  if (vc <= args.n_loc) {
+    b = args.rows_flat + (base + vc) * args.row_stride;
+    nb = args.deg_ext[base + vc];
+  } else if (vc < args.n_loc + 1 + args.n_cache) {
+    const int c = vc - args.n_loc - 1;
+    b = args.cache_rows + (long long)c * args.cache_stride;
+    nb = args.cache_len[c];
+  } else {
+    const long long item = (long long)rank * args.p * args.s_max +
+                           (vc - args.n_loc - 1 - args.n_cache);
+    b = args.landing + args.land_off[item];
+    nb = args.land_len[item];
+  }
+}
+
+// One piece: u's ids set in a bitmap of [0, sentinel), then every slot's v
+// row tested against it. The slots are taken kThreads at a time: each
+// thread resolves one and counts its work items (kItemIds ids each), a
+// block scan numbers the items, and the warps take them in turn.
+__device__ __forceinline__ void count_piece(const CountArgs& args,
+                                            int piece, unsigned* bitmap,
+                                            int* red) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  PieceSlot* slots =
+      reinterpret_cast<PieceSlot*>(bitmap + args.bitmap_words);
+  const long long e0 = args.piece_e[piece];
+  const int n = args.piece_n[piece];
+  const int rank = (int)(e0 / args.e_max);
+  const long long base = (long long)rank * (args.n_loc + 1);
+  const int u = args.edge_u[e0];
+  const int* a = args.rows_flat + (base + u) * args.row_stride;
+  const int na = args.deg_ext[base + u];
+
+  uint4* words = reinterpret_cast<uint4*>(bitmap);
+  for (int i = tid; i < args.bitmap_words / 4; i += kThreads) {
+    words[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  for (int i = tid; i < na; i += kThreads) {
+    const int id = __ldg(a + i);
+    atomicOr(bitmap + (id >> 5), 1u << (id & 31));
+  }
+  __syncthreads();
+
+  int hits = 0;
+  for (int s0 = 0; s0 < n; s0 += kThreads) {
+    const int* b = nullptr;
+    int nb = 0;
+    if (s0 + tid < n) {
+      row_of_v(args, rank, base, args.edge_vc[e0 + s0 + tid], b, nb);
+    }
+    const int items = (nb + kItemIds - 1) / kItemIds;
+    int incl = items;  // inclusive scan over the warp, then the block
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(pi::kFull, incl, o);
+      if (lane >= o) incl += x;
+    }
+    if (lane == 31) red[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? red[w] : 0;
+      total += red[w];
+    }
+    slots[tid] = PieceSlot{b, nb, before + incl - items};
+    __syncthreads();
+    for (int k = warp; k < total; k += kWarps) {
+      // the last slot whose first item is <= k holds item k
+      int lo = 0, hi = kThreads - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (slots[mid].first_item <= k) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      const PieceSlot q = slots[lo];
+      const int off = (k - q.first_item) * kItemIds;
+      hits += pi::bitmap_part<kPieceIlp>(q.b + off, min(kItemIds, q.nb - off),
+                                         bitmap, lane);
+    }
+    __syncthreads();  // slots and red are rewritten next
+  }
+  hits = __reduce_add_sync(pi::kFull, hits);
+  if (lane == 0) red[warp] = hits;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += red[w];
+    if (total != 0) atomicAdd(args.acc + base + u, total);
+  }
+}
 
 // acc[rank, u] += the pair's count: exact and order-free
 struct AddCount {
@@ -91,56 +236,6 @@ struct AddCount {
     if (c != 0) atomicAdd(acc + pr.dst, c);
   }
 };
-
-__global__ void __launch_bounds__(kThreads)
-epoch_count_kernel(const CountArgs args) {
-  __shared__ pi::Tile<kTile> tile;
-  __shared__ int red[kWarps];
-  extern __shared__ int stage[];
-
-  const int tid = threadIdx.x;
-  pi::tile_init(tile);
-  __syncthreads();
-
-  const long long n_slots = (long long)args.p * args.e_chunk;
-  const long long slot = (long long)blockIdx.x * kTile + tid;
-  if (tid < kTile && slot < n_slots) {
-    const int rank = (int)(slot / args.e_chunk);
-    const long long e = (long long)rank * args.e_max +
-                        (long long)args.round * args.e_chunk +
-                        slot % args.e_chunk;
-    if (args.edge_mask[e]) {
-      const int u = args.edge_u[e], vc = args.edge_vc[e];
-      const long long base = (long long)rank * (args.n_loc + 1);
-      const int na = args.deg_ext[base + u];
-      const int* b;
-      int nb;
-      if (vc <= args.n_loc) {
-        b = args.rows_flat + (base + vc) * args.row_stride;
-        nb = args.deg_ext[base + vc];
-      } else if (vc < args.n_loc + 1 + args.n_cache) {
-        const int c = vc - args.n_loc - 1;
-        b = args.cache_rows + (long long)c * args.cache_stride;
-        nb = args.cache_len[c];
-      } else {
-        const long long item = (long long)rank * args.p * args.s_max +
-                               (vc - args.n_loc - 1 - args.n_cache);
-        b = args.landing + args.land_off[item];
-        nb = args.land_len[item];
-      }
-      if (u < args.n_loc && na > 0 && nb > 0) {
-        const bool merge = pi::use_merge(args.method, na, nb);
-        pi::tile_add<kTile, kLightWork, kHeavyWork>(
-            tile, tid,
-            pi::Pair{args.rows_flat + (base + u) * args.row_stride, b, na,
-                     nb, (int)(base + u), merge ? 1 : 0});
-      }
-    }
-  }
-  __syncthreads();
-  pi::tile_count<kThreads, kGroup>(tile, stage, args.stage_cap, red,
-                                   AddCount{args.acc});
-}
 
 __global__ void __launch_bounds__(kThreads)
 epoch_land_kernel(const int* __restrict__ rows_flat, long long row_stride,
@@ -170,20 +265,103 @@ epoch_land_kernel(const int* __restrict__ rows_flat, long long row_stride,
 
 }  // namespace
 
+// Outside the anonymous namespace, so that a profiler names an instantiation
+// `void epoch::epoch_count_kernel<true>(...)`: the bare name every trace
+// reader takes as epoch_count_kernel. kRuns: the problem has a run table
+// (piece blocks first, then tile blocks over its tiles); without one the
+// kernel is the tile kernel alone, at 32 registers (kRuns takes 40, which
+// costs occupancy where shared memory does not already bound it: on the
+// H100, urand S19's count took 10.9 ms an epoch as one kernel, 8.1 before).
+namespace epoch {
+
+template <bool kRuns>
+__global__ void __launch_bounds__(kThreads)
+epoch_count_kernel(const CountArgs args) {
+  __shared__ pi::Tile<kTile> tile;
+  __shared__ int red[kWarps];
+  extern __shared__ __align__(16) int stage[];
+
+  if constexpr (kRuns) {
+    if ((int)blockIdx.x < args.n_pieces) {
+      count_piece(args, blockIdx.x, reinterpret_cast<unsigned*>(stage), red);
+      return;
+    }
+  }
+  const int tid = threadIdx.x;
+  pi::tile_init(tile);
+  __syncthreads();
+
+  // this thread's slot: e = rank * e_max + round * e_chunk + j
+  const long long t = (long long)blockIdx.x - args.n_pieces;
+  long long e = -1;
+  int rank = 0;
+  if constexpr (kRuns) {
+    const long long packed = args.tiles[t];
+    if (tid < (int)(packed & 31)) {
+      e = (packed >> 5) + tid;
+      rank = (int)(e / args.e_max);
+    }
+  } else {
+    const long long slot = t * kTile + tid;
+    if (tid < kTile && slot < (long long)args.p * args.e_chunk) {
+      rank = (int)(slot / args.e_chunk);
+      e = (long long)rank * args.e_max + (long long)args.round * args.e_chunk +
+          slot % args.e_chunk;
+    }
+  }
+  if (e >= 0 && args.edge_mask[e]) {
+    const int u = args.edge_u[e];
+    const long long base = (long long)rank * (args.n_loc + 1);
+    const int na = args.deg_ext[base + u];
+    const int* b;
+    int nb;
+    row_of_v(args, rank, base, args.edge_vc[e], b, nb);
+    if (u < args.n_loc && na > 0 && nb > 0) {
+      const bool merge = pi::use_merge(args.method, na, nb);
+      pi::tile_add<kTile, kLightWork, kHeavyWork>(
+          tile, tid,
+          pi::Pair{args.rows_flat + (base + u) * args.row_stride, b, na, nb,
+                   (int)(base + u), merge ? 1 : 0});
+    }
+  }
+  __syncthreads();
+  pi::tile_count<kThreads, kGroup>(tile, stage, args.stage_cap, red,
+                                   AddCount{args.acc});
+}
+
+}  // namespace epoch
+
 extern "C" int epoch_count_launch(
     const void* rows_flat, long long row_stride, const void* deg_ext,
     const void* cache_rows, long long cache_stride, const void* cache_len,
     int n_cache, const void* landing, const void* land_off,
     const void* land_len, const void* edge_u, const void* edge_vc,
     const void* edge_mask, int p, int n_loc, int s_max, long long e_max,
-    long long e_chunk, int round, int method, int stage_cap, void* acc,
-    void* stream) {
-  const long long n_slots = (long long)p * e_chunk;
-  if (n_slots <= 0) return 0;
-  const long long blocks = (n_slots + kTile - 1) / kTile;
+    long long e_chunk, int round, int method, int stage_cap,
+    const void* piece_e, const void* piece_n, int n_pieces, const void* tiles,
+    long long n_tiles, int bitmap_words, void* acc, void* stream) {
+  // n_tiles < 0: no tile table, the tile blocks take every kTile slots
+  const long long tile_blocks =
+      n_tiles >= 0 ? n_tiles : ((long long)p * e_chunk + kTile - 1) / kTile;
+  // pieces come with a run table, and so with its tiles (n_tiles >= 0)
+  if ((n_tiles > 0 && tiles == nullptr) || (n_tiles < 0 && tiles != nullptr) ||
+      n_pieces < 0 || (n_pieces > 0 && n_tiles < 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long blocks = n_pieces + tile_blocks;
+  if (blocks <= 0) return 0;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   if (stage_cap < 0 || stage_cap > kStageCap) {
     return (int)cudaErrorInvalidValue;
+  }
+  size_t smem = (size_t)stage_cap * sizeof(int);
+  if (n_pieces > 0) {
+    const size_t need =
+        (size_t)bitmap_words * sizeof(unsigned) + kThreads * sizeof(PieceSlot);
+    if (bitmap_words <= 0 || bitmap_words % 4 != 0 || need > kSmemCap) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (need > smem) smem = need;
   }
   const CountArgs args{
       (const int*)rows_flat, row_stride, (const int*)deg_ext,
@@ -191,10 +369,16 @@ extern "C" int epoch_count_launch(
       (const int*)landing, (const long long*)land_off, (const int*)land_len,
       (const int*)edge_u, (const int*)edge_vc,
       (const unsigned char*)edge_mask, p, n_loc, s_max, e_max, e_chunk,
-      round, method, stage_cap, (int*)acc};
-  epoch_count_kernel<<<(unsigned)blocks, kThreads,
-                       (size_t)stage_cap * sizeof(int),
-                       (cudaStream_t)stream>>>(args);
+      round, method, stage_cap, (const long long*)piece_e,
+      (const int*)piece_n, n_pieces, (const long long*)tiles, bitmap_words,
+      (int*)acc};
+  if (n_tiles >= 0) {
+    epoch::epoch_count_kernel<true><<<(unsigned)blocks, kThreads, smem,
+                                      (cudaStream_t)stream>>>(args);
+  } else {
+    epoch::epoch_count_kernel<false><<<(unsigned)blocks, kThreads, smem,
+                                       (cudaStream_t)stream>>>(args);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -215,3 +399,5 @@ extern "C" int epoch_land_launch(const void* rows_flat, long long row_stride,
 }
 
 extern "C" int epoch_count_stage_cap() { return kStageCap; }
+
+extern "C" int epoch_count_tile_slots() { return kTile; }

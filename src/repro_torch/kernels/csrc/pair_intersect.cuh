@@ -1,7 +1,9 @@
 // Count of the common ids of two sorted, deduplicated int32 rows whose valid
 // lengths are given — the device core of epoch_count.cu (B7),
 // intersect_count.cu (B1) and resident_intersect.cu (B3; B3 alone calls the
-// search with K lookups in flight, search_part_ilp / group_count_ilp).
+// search with K lookups in flight, search_part_ilp / group_count_ilp). B3
+// and B7 also count a row against a bitmap of another in shared memory
+// (bitmap_part).
 //
 // Valid ids are < sentinel <= INT_MAX, so kPad (INT_MAX) pads a ragged tile
 // and never equals a valid id. Two strategies give the same integer:
@@ -234,6 +236,27 @@ __device__ __forceinline__ int group_count_ilp(const int* __restrict__ a,
   const int part = na <= nb ? search_part_ilp<K>(a, na, b, nb, g_lane, G)
                             : search_part_ilp<K>(b, nb, a, na, g_lane, G);
   return group_sum<G>(part, mask);
+}
+
+// count of b[0, nb)'s ids whose bit is set in `bitmap` (shared memory), by
+// the 32 lanes of a warp: coalesced loads, K of them in flight a lane
+template <int K>
+__device__ __forceinline__ int bitmap_part(const int* __restrict__ b, int nb,
+                                           const unsigned* bitmap, int lane) {
+  int hits = 0;
+  for (int i = lane; i < nb; i += 32 * K) {
+    int id[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = i + 32 * k;
+      id[k] = j < nb ? __ldg(b + j) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (id[k] >= 0) hits += (bitmap[id[k] >> 5] >> (id[k] & 31)) & 1u;
+    }
+  }
+  return hits;
 }
 
 // |a ∩ b| by every thread of a block of T threads. merge: the longer prefix

@@ -136,26 +136,6 @@ __device__ __forceinline__ const int* slot_row(const Args& args, int s,
   return row;
 }
 
-// count of b's valid ids whose bit is set, by the 32 lanes of a warp:
-// coalesced loads, kIlp of them in flight a lane
-__device__ __forceinline__ int bitmap_part(const int* __restrict__ b, int nb,
-                                           const unsigned* bitmap, int lane) {
-  int hits = 0;
-  for (int i = lane; i < nb; i += 32 * kIlp) {
-    int id[kIlp];
-#pragma unroll
-    for (int k = 0; k < kIlp; ++k) {
-      const int j = i + 32 * k;
-      id[k] = j < nb ? __ldg(b + j) : -1;
-    }
-#pragma unroll
-    for (int k = 0; k < kIlp; ++k) {
-      if (id[k] >= 0) hits += (bitmap[id[k] >> 5] >> (id[k] & 31)) & 1u;
-    }
-  }
-  return hits;
-}
-
 __global__ void __launch_bounds__(kThreads)
 resident_intersect_kernel(const Args args) {
   __shared__ Pair pairs[kTile];
@@ -260,8 +240,8 @@ resident_intersect_kernel(const Args args) {
     __syncthreads();
     for (int q = warp; q < len; q += kWarps) {
       const Pair pr = pairs[p0 + q];
-      const int c = __reduce_add_sync(pi::kFull,
-                                      bitmap_part(pr.b, pr.nb, bitmap, lane));
+      const int c = __reduce_add_sync(
+          pi::kFull, pi::bitmap_part<kIlp>(pr.b, pr.nb, bitmap, lane));
       if (lane == 0) args.counts[first + p0 + q] = c;
     }
     __syncthreads();

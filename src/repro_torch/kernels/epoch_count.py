@@ -21,6 +21,23 @@ valid length of every cache row. Per round ``r``:
                    ``method`` picks the strategy per pair: ``bsearch``
                    searches, ``pairwise`` merges, ``hybrid`` merges iff
                    ``na + nb <= ns * ceil(log2(nl + 1))`` (``hybrid_merges``).
+                   A hub's run of slots (one ``u``) that ``count_runs``
+                   keeps is counted instead against a bitmap of u's row:
+                   the same integers, whatever the method.
+
+The run table (``count_runs``, built once a problem on its device, before
+the first epoch's index) lists the pieces of those runs and the tiles of the
+slots no piece covers. A run is a stretch of consecutive real slots of one
+``(rank, round)`` chunk that share ``u``; it is kept iff the bitmap of the
+ids fits the shared memory that costs no block of occupancy
+(``bitmap_fits``), it holds at least ``_MIN_RUN`` slots, and ``4 * (bitmap
+build + ids streamed) <= _BITMAP_Q * compares``: its pieces clear and set a
+bitmap each (``words + deg(u)``), its slots stream their v rows (``sum
+nb``), against the compares ``hybrid`` would make. A kept run is
+cut into pieces of at most ``_PIECE_SLOTS`` slots, so one hub's run spreads
+over many blocks. The constants were chosen on the card (``csrc/
+epoch_count.cu``'s header). ``bitmap_slot_share`` is the share of the real
+slots the pieces cover.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 for CPU tensors; the choice follows the tensors' device and nothing else. A
@@ -31,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,7 +56,10 @@ from ..core.intersect import count_bsearch_torch, count_pairwise_torch
 from . import _build
 
 __all__ = [
+    "CountRuns",
     "EpochIndex",
+    "bitmap_slot_share",
+    "count_runs",
     "epoch_index",
     "epoch_land",
     "epoch_land_ref",
@@ -53,6 +74,22 @@ _LIB = "epoch_count"
 METHOD_CODES = {"bsearch": 0, "pairwise": 1, "hybrid": 2}
 # most bytes one padded operand of the plain count may take per slab
 _SLAB_BYTES = 2 << 30
+# the run table's rule (see csrc/epoch_count.cu's header for the choice):
+# the fewest slots of a kept run, the most slots of a piece, and the weight
+# of the compares saved: keep iff 4 * (ids set, cleared, streamed) <= Q * them
+_MIN_RUN = 32
+_PIECE_SLOTS = 256
+_BITMAP_Q = 64
+# shared memory a piece block may take without costing a tile block any
+# occupancy: the stage a launch takes anyway (kStageCap ids of csrc/
+# epoch_count.cu, 4 B each) or 24 KB, with which 8 blocks of 256 threads, the
+# thread limit, still fit an SM; a piece block takes the bitmap and 16 B a
+# thread for its slots
+_STAGE_IDS = 10240
+_FREE_SMEM = 24 << 10
+_PIECE_SCRATCH = 256 * 16  # kThreads x sizeof(PieceSlot)
+# slots of a tile block (kTile of csrc/epoch_count.cu)
+_TILE_SLOTS = 16
 _launches = {"epoch_land": 0, "epoch_count": 0}
 
 
@@ -81,20 +118,222 @@ def hybrid_merges(na: torch.Tensor, nb: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class CountRuns:
+    """The run table of one ``DeviceLCCProblem``, on its device. Slots are
+    named by their flat index ``e = rank * e_max + round * e_chunk + j``;
+    both lists are grouped by round, round ``r``'s entries at
+    ``[start[r], start[r + 1])`` (host offsets)."""
+
+    piece_e: torch.Tensor  # [pieces] int64 first slot of each piece
+    piece_n: torch.Tensor  # [pieces] int32 slots of each piece
+    piece_start: Tuple[int, ...]  # [NR + 1]
+    # [tiles] int64 ``e * 32 + slots`` of up to _TILE_SLOTS consecutive real
+    # slots no piece covers; None where the problem has no piece: the tile
+    # blocks then take every _TILE_SLOTS slots of the round in order
+    tiles: Optional[torch.Tensor]
+    tile_start: Optional[Tuple[int, ...]]  # [NR + 1]
+    covered: int  # real slots the pieces cover
+    real: int  # real slots of the problem
+
+    @property
+    def share(self) -> float:
+        return self.covered / self.real if self.real else 0.0
+
+
+def _slot_lengths(prob, k: int, pos: torch.Tensor, deg_ext: torch.Tensor,
+                  cache_len: torch.Tensor) -> torch.Tensor:
+    """Valid length (int64) of v's row for rank ``k``'s real slots ``pos``:
+    local rows and pulled rows by their owner's degree (a pulled slot's
+    row through ``serve_idx``), cache rows by their valid prefix."""
+    n_loc, s_max = prob.n_loc, prob.s_max
+    c = cache_len.numel()
+    e_chunk = prob.e_max // prob.n_rounds
+    vc = prob.edge_vc[k][pos].to(torch.int64)
+    nb = deg_ext[k * (n_loc + 1) + vc.clamp(max=n_loc)]
+    fetched = vc >= n_loc + 1 + c
+    item = (vc - (n_loc + 1 + c)).clamp(min=0)
+    src = item // s_max
+    loc = prob.serve_idx[src, pos // e_chunk, k, item % s_max].to(torch.int64)
+    nb = torch.where(fetched, deg_ext[src * (n_loc + 1) + loc], nb)
+    if c:
+        cached = (vc > n_loc) & ~fetched
+        nb = torch.where(cached, cache_len[(vc - (n_loc + 1)).clamp(0, c - 1)],
+                         nb)
+    return nb
+
+
+def _real(prob, k: int) -> torch.Tensor:
+    """[e_max] bool: rank ``k``'s real slots (an edge, u not the phantom)."""
+    return prob.edge_mask[k] & (prob.edge_u[k] < prob.n_loc)
+
+
+def _stretches(pos: torch.Tensor, key: torch.Tensor, e_chunk: int):
+    """Run ids of sorted slot positions: a run breaks where positions skip,
+    ``key`` changes or a round chunk ends. Returns (run of each position,
+    first position of each run, slots of each run)."""
+    new = torch.ones_like(pos, dtype=torch.bool)
+    new[1:] = ((pos[1:] != pos[:-1] + 1) | (key[1:] != key[:-1])
+               | (pos[1:] // e_chunk != pos[:-1] // e_chunk))
+    run = torch.cumsum(new, 0) - 1
+    return run, pos[new], torch.bincount(run, minlength=int(new.sum()))
+
+
+def _pieces_of_rank(prob, k: int, deg_ext: torch.Tensor,
+                    cache_len: torch.Tensor):
+    """(first slot, slots) of rank ``k``'s pieces, positions within the
+    rank: the kept runs, each cut into near-equal pieces of at most
+    ``_PIECE_SLOTS`` slots."""
+    n_loc, e_chunk = prob.n_loc, prob.e_max // prob.n_rounds
+    eu = prob.edge_u[k].to(torch.int64)
+    na_all = deg_ext[k * (n_loc + 1) + eu.clamp(max=n_loc)]
+    # a run holds at most deg(u) slots: only hubs' slots are candidates
+    pos = (_real(prob, k) & (na_all >= _MIN_RUN)).nonzero().reshape(-1)
+    empty = pos.new_zeros(0)
+    if pos.numel() == 0:
+        return empty, empty
+    run, first, slots = _stretches(pos, eu[pos], e_chunk)
+    na, nb = na_all[pos], _slot_lengths(prob, k, pos, deg_ext, cache_len)
+    ns, nl = torch.minimum(na, nb), torch.maximum(na, nb)
+    work = torch.where(hybrid_merges(na, nb), na + nb,
+                       ns * bit_length(nl).to(torch.int64))
+    n_runs = first.numel()
+    compares = torch.zeros(n_runs, dtype=torch.int64,
+                           device=pos.device).index_add_(0, run, work)
+    streamed = torch.zeros_like(compares).index_add_(0, run, nb)
+    pieces = (slots + _PIECE_SLOTS - 1) // _PIECE_SLOTS
+    words = bitmap_bytes(prob.sentinel) // 4
+    cost = pieces * (words + na_all[first]) + streamed
+    keep = (slots >= _MIN_RUN) & (4 * cost <= _BITMAP_Q * compares)
+    first, slots, pieces = first[keep], slots[keep], pieces[keep]
+    if first.numel() == 0:
+        return empty, empty
+    of = torch.repeat_interleave(torch.arange(first.numel(),
+                                              device=pos.device), pieces)
+    i = torch.arange(of.numel(), device=pos.device) - (
+        torch.cumsum(pieces, 0) - pieces)[of]
+    lo = i * slots[of] // pieces[of]
+    hi = (i + 1) * slots[of] // pieces[of]
+    return first[of] + lo, hi - lo
+
+
+def _tiles_of_rank(prob, k: int, first: torch.Tensor,
+                   slots: torch.Tensor) -> torch.Tensor:
+    """Rank-local ``pos * 32 + slots`` of the tiles over the real slots no
+    piece covers: each stretch of them within a round chunk cut into
+    ``_TILE_SLOTS``-slot tiles from its start."""
+    e_max, e_chunk = prob.e_max, prob.e_max // prob.n_rounds
+    edge = torch.zeros(e_max + 1, dtype=torch.int32, device=first.device)
+    edge.index_add_(0, first, torch.ones_like(first, dtype=torch.int32))
+    edge.index_add_(0, first + slots,
+                    -torch.ones_like(first, dtype=torch.int32))
+    covered = torch.cumsum(edge[:e_max], 0) > 0
+    pos = (_real(prob, k) & ~covered).nonzero().reshape(-1)
+    if pos.numel() == 0:
+        return pos
+    run, start, length = _stretches(pos, torch.zeros_like(pos), e_chunk)
+    at = pos - start[run]
+    head = at % _TILE_SLOTS == 0
+    n = torch.clamp(length[run] - at, max=_TILE_SLOTS)
+    return pos[head] * 32 + n[head]
+
+
+def _by_round(prob, e: torch.Tensor):
+    """Stable order of flat slot indices by round, and the host offsets of
+    each round's entries."""
+    e_chunk = prob.e_max // prob.n_rounds
+    rnd = (e % prob.e_max) // e_chunk
+    order = torch.sort(rnd, stable=True).indices
+    counts = torch.bincount(rnd, minlength=prob.n_rounds).tolist()
+    start = [0]
+    for c in counts:
+        start.append(start[-1] + c)
+    return order, tuple(start)
+
+
+def bitmap_bytes(sentinel: int) -> int:
+    """Bytes of the bitmap of ``[0, sentinel)``, in whole 16-byte groups."""
+    return 16 * -(-sentinel // 128)
+
+
+def bitmap_fits(prob) -> bool:
+    """A piece block's shared memory (bitmap and slots) within what the
+    launch takes anyway for a staged row, or within ``_FREE_SMEM``."""
+    stage = 4 * min(prob.rows_ext.shape[-1], _STAGE_IDS)
+    return (bitmap_bytes(prob.sentinel) + _PIECE_SCRATCH
+            <= max(stage, _FREE_SMEM))
+
+
+def count_runs(prob) -> CountRuns:
+    """The run table of ``prob`` (``DeviceLCCProblem``), built on its device
+    the first time it is asked for and kept on it (``_count_runs``); no
+    piece where the bitmap would not fit (``bitmap_fits``). The build reads
+    the problem's schedule arrays and synchronises; ``epoch_index`` asks for
+    it before the epoch's own buffers exist, so its temporaries (rank by
+    rank, hubs' slots only) stay within the epoch's."""
+    runs = getattr(prob, "_count_runs", None)
+    if runs is not None:
+        return runs
+    p, n_loc, e_max = prob.p, prob.n_loc, prob.e_max
+    dev = prob.rows_ext.device
+    n_real = sum(int(_real(prob, k).sum()) for k in range(p))
+    firsts = []
+    if (bitmap_fits(prob) and prob.degrees.numel()
+            and int(prob.degrees.max()) >= _MIN_RUN):
+        deg_ext = torch.cat([prob.degrees, prob.degrees.new_zeros((p, 1))],
+                            dim=1).reshape(-1).to(torch.int64)
+        cache_len = (prob.cache_rows < prob.sentinel).sum(-1)
+        for k in range(p):
+            first, slots = _pieces_of_rank(prob, k, deg_ext, cache_len)
+            firsts.append((first + k * e_max, slots))
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    piece_e = torch.cat([f for f, _ in firsts] or [empty])
+    piece_n = torch.cat([n for _, n in firsts] or [empty])
+    order, piece_start = _by_round(prob, piece_e)
+    piece_e, piece_n = piece_e[order], piece_n[order]
+    tiles = tile_start = None
+    if piece_e.numel():
+        per_rank = []
+        for k in range(p):
+            mine = (piece_e // e_max) == k
+            t = _tiles_of_rank(prob, k, piece_e[mine] % e_max, piece_n[mine])
+            per_rank.append(t + k * e_max * 32)
+        tiles = torch.cat(per_rank)
+        order, tile_start = _by_round(prob, tiles // 32)
+        tiles = tiles[order]
+    runs = CountRuns(piece_e=piece_e, piece_n=piece_n.to(torch.int32),
+                     piece_start=piece_start, tiles=tiles,
+                     tile_start=tile_start, covered=int(piece_n.sum()),
+                     real=n_real)
+    prob._count_runs = runs
+    return runs
+
+
+def bitmap_slot_share(prob) -> float:
+    """Share of the real edge slots of ``prob`` that the run table's pieces
+    cover: the slots counted against a bitmap of their hub's row."""
+    return count_runs(prob).share
+
+
+@dataclasses.dataclass
 class EpochIndex:
-    """The per-epoch index maps of one ``DeviceLCCProblem``."""
+    """The per-epoch index maps of one ``DeviceLCCProblem``, and its run
+    table (built once a problem)."""
 
     deg_ext: torch.Tensor  # [p * (n_loc + 1)] int32; 0 for the phantom rows
     cache_len: torch.Tensor  # [C] int32 valid length of each cache row
     land_len: torch.Tensor  # [NR, p * p * S_max] int32, items [dst, src, slot]
     land_off: torch.Tensor  # [NR, p * p * S_max] int64, exclusive cumsum
+    runs: CountRuns
 
 
 def epoch_index(prob) -> EpochIndex:
     """The index maps of ``prob`` on its device: one gather of the pulled
-    degrees through ``serve_idx`` and one ``cumsum``; no host sync."""
+    degrees through ``serve_idx`` and one ``cumsum``; no host sync once the
+    problem's run table is built (``count_runs``, first, so its temporaries
+    come before the maps')."""
     p, n_loc, nr, s_max = prob.p, prob.n_loc, prob.n_rounds, prob.s_max
     dev = prob.rows_ext.device
+    runs = count_runs(prob)
     deg_ext = torch.cat(
         [prob.degrees, prob.degrees.new_zeros((p, 1))], dim=1).reshape(-1)
     cache_len = (prob.cache_rows < prob.sentinel).sum(-1, dtype=torch.int32)
@@ -105,7 +344,7 @@ def epoch_index(prob) -> EpochIndex:
     land_len = deg_ext[glob.reshape(nr, p * p * s_max)]
     ends = torch.cumsum(land_len, dim=1)  # int64
     return EpochIndex(deg_ext=deg_ext, cache_len=cache_len,
-                      land_len=land_len, land_off=ends - land_len)
+                      land_len=land_len, land_off=ends - land_len, runs=runs)
 
 
 def _rows_flat(prob) -> torch.Tensor:
@@ -289,9 +528,20 @@ def epoch_count(prob, index: EpochIndex, r: int, landing: torch.Tensor,
     lib = _build.load(_LIB)
     fn = _function("epoch_count_launch",
                    [_P, _LL, _P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P])
+                    _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _I, _P, _LL,
+                    _I, _P, _P])
+    if lib.epoch_count_tile_slots() != _TILE_SLOTS:
+        raise RuntimeError("csrc/epoch_count.cu's tile is not _TILE_SLOTS")
     w = prob.rows_ext.shape[-1]
-    stage_cap = min(w, lib.epoch_count_stage_cap())
+    stage_cap = min(w, _STAGE_IDS, lib.epoch_count_stage_cap())
+    runs = index.runs
+    p0, p1 = runs.piece_start[r], runs.piece_start[r + 1]
+    tiles, n_tiles = None, -1  # -1: every _TILE_SLOTS slots of the round
+    if runs.tiles is not None:
+        t0 = runs.tile_start[r]
+        tiles = runs.tiles.data_ptr() + 8 * t0
+        n_tiles = runs.tile_start[r + 1] - t0
+    words = bitmap_bytes(prob.sentinel) // 4 if p1 > p0 else 0
     with torch.cuda.device(dev):
         err = fn(prob.rows_ext.data_ptr(), w, index.deg_ext.data_ptr(),
                  prob.cache_rows.data_ptr(), prob.cache_rows.shape[-1],
@@ -301,7 +551,9 @@ def epoch_count(prob, index: EpochIndex, r: int, landing: torch.Tensor,
                  prob.edge_vc.data_ptr(), prob.edge_mask.data_ptr(), prob.p,
                  prob.n_loc, prob.s_max, prob.e_max,
                  prob.e_max // prob.n_rounds, r, METHOD_CODES[method],
-                 stage_cap, acc.data_ptr(),
+                 stage_cap, runs.piece_e.data_ptr() + 8 * p0,
+                 runs.piece_n.data_ptr() + 4 * p0, p1 - p0, tiles, n_tiles,
+                 words, acc.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     _launches["epoch_count"] += 1
     if err != 0:

@@ -55,8 +55,9 @@ Taxonomy (the phase names instrumentation uses):
 The static LCC epoch (``core/async_engine.py::lcc_pipelined``):
 
     lcc.epoch         one whole call; args ``rounds``, ``method``,
-                      ``route``, ``landed_ids``, ``landed_bytes`` and,
-                      on a CUDA device with a tracer, ``device_ms``
+                      ``route``, ``landed_ids``, ``landed_bytes``, on the
+                      kernels' route ``bitmap_slot_share`` and, on a CUDA
+                      device with a tracer, ``device_ms``
     lcc.index         ``epoch_index``, the accumulators and landing
                       buffers, round 0's landing
     lcc.round         one round's landing and count (arg ``r``)

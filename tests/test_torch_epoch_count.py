@@ -265,3 +265,245 @@ def test_epoch_kernels_reject_bad_input():
     with pytest.raises(ValueError, match="acc"):
         ec.epoch_count(prob, index, 0, landing, acc.long(), method="hybrid")
     assert ec.launches() == {"epoch_land": 0, "epoch_count": 0}
+
+
+# --------------------------------------------------------------------------
+# the run table (count_runs): hub runs counted against a bitmap
+# --------------------------------------------------------------------------
+SMALL_RUNS = {"_MIN_RUN": 8, "_PIECE_SLOTS": 16, "_BITMAP_Q": 64}
+
+
+def runs_graph(n=600, hubs=(0, 149, 300, 599), seed=0, extra=900):
+    """Hubs adjacent to every vertex (with p = 4 two are the last vertex of
+    a rank, so a run ends at a rank's last slot), random edges beside."""
+    rng = np.random.default_rng(seed)
+    edges = [(h, v) for h in hubs for v in range(n) if v != h]
+    edges += [tuple(e) for e in rng.integers(0, n, size=(extra, 2))]
+    return from_edges(np.array(edges), n, undirected=True)
+
+
+def flat_graph(n=512, deg=16, seed=0):
+    """Uniform random edges: every degree far below a kept run."""
+    rng = np.random.default_rng(seed)
+    return from_edges(rng.integers(0, n, size=(n * deg // 2, 2)), n,
+                      undirected=True)
+
+
+def no_room(monkeypatch):
+    """No shared memory left for a bitmap: a stage of 16 ids, nothing free
+    beside it (the card then stages rows of at most 16 ids)."""
+    monkeypatch.setattr(ec, "_STAGE_IDS", 16)
+    monkeypatch.setattr(ec, "_FREE_SMEM", 0)
+
+
+def rule_oracle(prob, g):
+    """The kept runs by the rule, by loops over the host problem: [(rank,
+    first slot, slots)]; each slot's v row has its degree's valid ids."""
+    e_chunk = prob.e_max // prob.n_rounds
+    words = 4 * -(-prob.n // 128)  # in whole 16-byte groups
+    kept = []
+    stage = 4 * min(prob.width, ec._STAGE_IDS)
+    if 16 * -(-prob.n // 128) + ec._PIECE_SCRATCH > max(stage, ec._FREE_SMEM):
+        return kept
+    for k, (u_l, v_g) in enumerate(prob.works):
+        j = 0
+        while j < u_l.size:
+            end = j + 1
+            while (end < u_l.size and u_l[end] == u_l[j]
+                   and end // e_chunk == j // e_chunk):
+                end += 1
+            na = int(prob.degrees[k, u_l[j]])
+            compares = streamed = 0
+            for v in v_g[j:end]:
+                nb = int(g.degrees[v])
+                ns, nl = min(na, nb), max(na, nb)
+                merge = na + nb <= ns * int(nl).bit_length()
+                compares += na + nb if merge else ns * int(nl).bit_length()
+                streamed += nb
+            pieces = -(-(end - j) // ec._PIECE_SLOTS)
+            cost = pieces * (words + na) + streamed
+            if end - j >= ec._MIN_RUN and 4 * cost <= ec._BITMAP_Q * compares:
+                kept.append((k, j, end - j))
+            j = end
+    return kept
+
+
+def coverage(prob, runs):
+    """[p * e_max] times each slot is covered by a piece and by a tile."""
+    pieces = np.zeros(prob.p * prob.e_max, np.int64)
+    tiles = np.zeros_like(pieces)
+    for e, n in zip(runs.piece_e.tolist(), runs.piece_n.tolist()):
+        pieces[e: e + n] += 1
+    if runs.tiles is not None:
+        for t in runs.tiles.tolist():
+            assert 1 <= t % 32 <= ec._TILE_SLOTS
+            tiles[t // 32: t // 32 + t % 32] += 1
+    return pieces, tiles
+
+
+def real_slots(prob):
+    return (prob.edge_mask & (prob.edge_u < prob.n_loc)).reshape(-1)
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["rule", "small_runs"])
+@pytest.mark.parametrize("p,n_rounds,cache_rows", [
+    (1, 1, 0), (4, 3, 8), (8, 2, 16), (2, 5, 4)])
+def test_run_table_covers_each_kept_slot_once(monkeypatch, p, n_rounds,
+                                              cache_rows, small):
+    if small:
+        for name, v in SMALL_RUNS.items():
+            monkeypatch.setattr(ec, name, v)
+    g = runs_graph(n=1200, hubs=(0, 299, 600, 1199), seed=p)
+    prob = problem(g, p, n_rounds, cache_rows)
+    runs = ec.count_runs(prob.to_device("cpu"))
+    kept = rule_oracle(prob, g)
+    assert kept  # the hubs' runs qualify
+    want = np.zeros(p * prob.e_max, np.int64)
+    for k, j, n in kept:
+        want[k * prob.e_max + j: k * prob.e_max + j + n] = 1
+    pieces, tiles = coverage(prob, runs)
+    assert np.array_equal(pieces, want)
+    real = real_slots(prob)
+    # every other real slot is in exactly one tile; no phantom slot in any
+    assert np.array_equal(tiles, (real & (want == 0)).astype(np.int64))
+    e_chunk = prob.e_max // prob.n_rounds
+    rounds = (runs.piece_e % prob.e_max // e_chunk).tolist()
+    assert rounds == sorted(rounds)
+    for r in range(prob.n_rounds):
+        got = rounds[runs.piece_start[r]: runs.piece_start[r + 1]]
+        assert got == [r] * len(got)
+    flat_u = prob.edge_u.reshape(-1)
+    for e, n in zip(runs.piece_e.tolist(), runs.piece_n.tolist()):
+        assert 1 <= n <= ec._PIECE_SLOTS
+        assert e // e_chunk == (e + n - 1) // e_chunk  # one (rank, round)
+        assert len(set(flat_u[e: e + n].tolist())) == 1
+    assert runs.covered == int(want.sum()) and runs.real == int(real.sum())
+    assert ec.bitmap_slot_share(prob.to_device("cpu")) == pytest.approx(
+        want.sum() / real.sum(), rel=1e-12)
+    assert runs.piece_n.dtype == torch.int32
+    if small:  # hub runs longer than one piece
+        assert max(n for _, _, n in kept) > ec._PIECE_SLOTS
+
+
+def urand_like_graph(seed=0):
+    """Flat degrees (at most 61, the urand cell's largest) over the urand
+    cell's id space of 2^19: 8,192 vertices with edges, spread over it."""
+    rng = np.random.default_rng(seed)
+    n = 1 << 19
+    vs = rng.choice(n, 8192, replace=False)
+    return from_edges(vs[rng.integers(0, vs.size, size=(8192 * 18, 2))], n,
+                      undirected=True)
+
+
+@pytest.mark.parametrize("graph", ["flat", "urand_like", "no_room"])
+def test_run_table_without_a_piece(monkeypatch, graph):
+    if graph == "no_room":
+        g = runs_graph()
+        no_room(monkeypatch)
+    elif graph == "flat":
+        g = flat_graph()
+    else:  # a 64 KB bitmap would cost the tile blocks occupancy
+        g = urand_like_graph()
+        assert 40 <= g.degrees.max() <= 61
+    prob = problem(g, 8 if graph == "urand_like" else 4, 3, 8)
+    dprob = prob.to_device("cpu")
+    runs = ec.count_runs(dprob)
+    assert runs.piece_e.numel() == 0 and runs.covered == 0
+    assert runs.tiles is None and runs.tile_start is None
+    assert runs.piece_start == (0,) * (prob.n_rounds + 1)
+    assert ec.bitmap_slot_share(dprob) == 0.0
+    assert runs.real == int(real_slots(prob).sum()) > 0
+    assert ec.bitmap_fits(dprob) == (graph == "flat")
+
+
+def test_run_table_is_built_once_a_problem():
+    dprob = problem(runs_graph(), 4, 3, 8).to_device("cpu")
+    first = ec.count_runs(dprob)
+    assert ec.count_runs(dprob) is first
+    assert ec.epoch_index(dprob).runs is first
+    assert ec.count_runs(problem(runs_graph(), 4, 3, 8).to_device(
+        "cpu")) is not first
+
+
+# --------------------------------------------------------------------------
+# on the card: pieces and tiles against the plain version and padded route
+# --------------------------------------------------------------------------
+def card_counts_match(prob, min_pieces=0):
+    """Round by round, every method: the card's epoch_count against the
+    plain version on the CPU; the whole epoch against the padded route.
+    Returns the problem's run table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: no CUDA device found")
+    dprob, cprob = prob.to_device("cuda"), prob.to_device("cpu")
+    index, cindex = ec.epoch_index(dprob), ec.epoch_index(cprob)
+    assert index.runs.piece_e.numel() >= min_pieces
+    width = prob.p * (prob.n_loc + 1)
+    for r in range(prob.n_rounds):
+        land = torch.full((max(1, dprob.land_ids),), -7, dtype=torch.int32,
+                          device="cuda")
+        ec.epoch_land(dprob, index, r, land)
+        want = ec.epoch_count_ref(cprob, cindex, r, land.cpu(),
+                                  torch.zeros(width, dtype=torch.int32),
+                                  method="bsearch")
+        for method in METHODS:
+            acc = torch.zeros(width, dtype=torch.int32, device="cuda")
+            ec.epoch_count(dprob, index, r, land, acc, method=method)
+            torch.cuda.synchronize()
+            assert torch.equal(acc.cpu(), want), (r, method)
+    for method in METHODS:
+        assert torch.equal(async_engine._epoch_acc(dprob, method).cpu(),
+                           async_engine._epoch_plain_acc(cprob, method))
+    return index.runs
+
+
+def piece_regions(prob, runs):
+    """Slots of the pieces by v's region: local, cache, landing."""
+    c = prob.cache_rows.shape[0]
+    vc = prob.edge_vc.reshape(-1)
+    out = np.zeros(3, np.int64)
+    for e, n in zip(runs.piece_e.tolist(), runs.piece_n.tolist()):
+        v = vc[e: e + n]
+        out += [(v <= prob.n_loc).sum(),
+                ((v > prob.n_loc) & (v < prob.n_loc + 1 + c)).sum(),
+                (v >= prob.n_loc + 1 + c).sum()]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("small", [False, True], ids=["rule", "small_runs"])
+def test_hub_runs_by_bitmap_on_card(monkeypatch, small):
+    """Hub runs longer than one piece, runs across a round chunk and at a
+    rank's last slot, v rows of all three regions (the hubs cached, so a
+    hub u's own row is a cache row on the other ranks)."""
+    if small:
+        for name, v in SMALL_RUNS.items():
+            monkeypatch.setattr(ec, name, v)
+    g = runs_graph(n=1200, hubs=(0, 299, 600, 1199))
+    prob = problem(g, 4, 3, 8)
+    runs = card_counts_match(prob, min_pieces=1)
+    assert (piece_regions(prob, runs) > 0).all()
+    assert max(n for _, _, n in rule_oracle(prob, g)) > ec._PIECE_SLOTS
+    e_chunk = prob.e_max // prob.n_rounds
+    ends = {(e + n) % prob.e_max for e, n in zip(runs.piece_e.tolist(),
+                                                 runs.piece_n.tolist())}
+    assert any(x % e_chunk == 0 for x in ends)  # a run cut by its chunk
+    last = {int(prob.edge_mask[k].sum()) for k in range(prob.p)}
+    assert ends & last  # a run at a rank's last real slot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flat", "no_room", "one_rank"])
+def test_count_without_pieces_or_on_one_rank_on_card(monkeypatch, case):
+    """A flat graph (no piece), no room for a bitmap (no piece: the same
+    integers), and one rank and round with small runs."""
+    if case == "flat":
+        prob = problem(flat_graph(), 4, 3, 8)
+    elif case == "no_room":
+        no_room(monkeypatch)
+        prob = problem(runs_graph(), 4, 3, 8)
+    else:
+        for name, v in SMALL_RUNS.items():
+            monkeypatch.setattr(ec, name, v)
+        prob = problem(runs_graph(seed=3), 1, 1, 0)
+    runs = card_counts_match(prob)
+    assert (runs.piece_e.numel() > 0) == (case == "one_rank")

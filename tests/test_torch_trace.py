@@ -17,6 +17,7 @@ from repro_torch.core import async_engine, rma
 from repro_torch.core.cache import build_static_degree_cache
 from repro_torch.core.csr import from_edges
 from repro_torch.graphs.rmat import rmat_edges
+from repro_torch.kernels import epoch_count as ec
 from repro_torch.launch import lcc_run
 from repro_torch.obs import trace as obs_trace
 
@@ -126,7 +127,8 @@ def test_tracer_and_profiler_record_the_same_spans():
     assert epoch["args"] == {
         "rounds": prob.n_rounds, "method": "bsearch", "route": "kernels",
         "landed_ids": dprob.landed_ids,
-        "landed_bytes": rma.ID_BYTES * dprob.landed_ids}  # no device_ms here
+        "landed_bytes": rma.ID_BYTES * dprob.landed_ids,
+        "bitmap_slot_share": ec.bitmap_slot_share(dprob)}  # no device_ms here
     rounds = [e["args"]["r"] for e in tracer.events
               if e["name"] == "lcc.round"]
     assert rounds == list(range(prob.n_rounds))
