@@ -709,7 +709,7 @@ def pad_sorted(rng, e, w, sentinel, np):
 
 def global_rows(prob, ids, np):
     """(owner rank, local row index) of global vertex ids in the compiled
-    problem's ``rows_ext`` slabs; id ``n`` maps to the phantom row."""
+    problem's row store; id ``n`` maps to the phantom row."""
     ids = np.asarray(ids, np.int64)
     part = prob.part
     real = ids < prob.n
@@ -816,7 +816,7 @@ def epoch_pair_lengths(dprob, index, torch):
     p, n_loc, s_max = dprob.p, dprob.n_loc, dprob.s_max
     c = dprob.cache_rows.shape[0]
     e_chunk = dprob.e_max // dprob.n_rounds
-    dev = dprob.rows_ext.device
+    dev = dprob.device
     rank = torch.arange(p, device=dev, dtype=torch.int64)[:, None]
     real = dprob.edge_mask
     eu = dprob.edge_u.to(torch.int64)[real]
@@ -849,7 +849,7 @@ def time_epoch(dprob, np, torch):
     ``epoch_land`` reads and writes the landed ids and reads its index."""
     from repro_torch.kernels import epoch_count as ec
 
-    dev = dprob.rows_ext.device
+    dev = dprob.device
     nr = dprob.n_rounds
     index = ec.epoch_index(dprob)
     lands = [torch.empty(max(1, dprob.land_ids), dtype=torch.int32,
@@ -4525,14 +4525,14 @@ def main() -> int:
     dprob = prob.to_device(dev)
 
     def operands(u_glob, v_glob):
-        """Device rows of the (u, v) pairs at the engine's width W."""
+        """Device rows of the (u, v) pairs, padded from the row store to
+        the engine's width W."""
         ou, lu = global_rows(prob, u_glob, np)
         ov, lv = global_rows(prob, v_glob, np)
-        flat = dprob.rows_ext.view(-1, w)
         stride = prob.n_loc + 1
         ia = torch.from_numpy(ou * stride + lu).to(dev)
         ib = torch.from_numpy(ov * stride + lv).to(dev)
-        return flat.index_select(0, ia), flat.index_select(0, ib)
+        return dprob.padded_rows(ia), dprob.padded_rows(ib)
 
     # ------------------------------------------------------------- checks
     rng = np.random.default_rng(0)
@@ -4720,7 +4720,7 @@ def main() -> int:
           "n": csr.n, "directed_edges": csr.m, "width": w, "p": RANKS,
           "cache_rows": CACHE_ROWS, "n_rounds": prob.n_rounds,
           "e_chunk": prob.e_max // prob.n_rounds, "s_max": prob.s_max,
-          "rows_ext_bytes": int(prob.rows_ext.nbytes),
+          "row_store_bytes": dprob.row_store_bytes(),
           "real_edge_slots": int(prob.edge_mask.sum()),
           "edge_slots": int(prob.edge_mask.size),
           "real_serve_slots": int((prob.serve_idx < prob.n_loc).sum()),

@@ -16,9 +16,10 @@ dst]``.
 - per round, ``epoch_land`` copies the valid prefix of each real pulled row
   into the landing buffer (the exchange: exactly the ids an RMA get moves),
   and ``epoch_count`` counts every edge slot of the round by index — u's row
-  from ``rows_ext``, v's from ``rows_ext``, the cache rows or the landing by
-  its combined index, each with its valid length — and adds the count into
-  S(u) with an int32 atomic add (integer adds are exact in any order).
+  from the problem's ragged row store, v's from the store, the cache rows or
+  the landing by its combined index, each with its valid length — and adds
+  the count into S(u) with an int32 atomic add (integer adds are exact in
+  any order).
 
 Two landing buffers alternate: round ``r+1``'s landing is enqueued before
 round ``r``'s count, the paper's double buffering kept as program order on
@@ -32,7 +33,8 @@ call; inside it ``lcc.index``, one ``lcc.round`` a round, ``lcc.scores`` and
 records, where they name the host's phase beside the device's work.
 
 ``_epoch_plain_acc`` (``plain=True``) is the padded route the engine is held
-against: per round the fetched rows are copied, at full width W, into a
+against, for small problems: the store padded to W (``rows_ext``, built on
+demand), and per round the fetched rows copied, at full width W, into a
 combined ``[local | cache | fetched]`` buffer, and the round's edge slots
 are walked in slabs of at most ``_PAIR_SLAB_BYTES`` per gathered operand
 (``rows * W * 4`` bytes), each slab gathered whole, counted by
@@ -64,7 +66,7 @@ _PAIR_SLAB_BYTES = 2 << 30
 def _epoch_acc(prob: DeviceLCCProblem, method: str) -> torch.Tensor:
     """One epoch over all rounds by index; returns S, int32 ``[p * (n_loc +
     1)]`` (the phantom row of each rank stays 0)."""
-    dev = prob.rows_ext.device
+    dev = prob.device
     with obs_trace.span("lcc.index"):
         index = ec.epoch_index(prob)
         acc = torch.zeros(prob.p * (prob.n_loc + 1), dtype=torch.int32,
@@ -88,9 +90,9 @@ def _epoch_plain_acc(prob: DeviceLCCProblem, method: str) -> torch.Tensor:
     p, n_loc, n_rounds, s_max = prob.p, prob.n_loc, prob.n_rounds, prob.s_max
     sentinel = prob.sentinel
     e_chunk = prob.e_max // n_rounds
-    rows_ext = prob.rows_ext  # [p, n_loc+1, W]
+    rows_ext = prob.rows_ext  # [p, n_loc+1, W], padded from the store
     dev = rows_ext.device
-    w = rows_ext.shape[-1]
+    w = prob.width
     c = prob.cache_rows.shape[0]
     rows_flat = rows_ext.reshape(p * (n_loc + 1), w)
     # first flat row of each rank: turns a rank-local row index into an
@@ -183,10 +185,11 @@ def lcc_pipelined(
     ``plain=True`` runs the padded plain route instead (any device).
 
     With a tracer installed, the ``lcc.epoch`` span carries the epoch's
-    shape, on the kernels' route the share of its slots counted by bitmap
-    (``bitmap_slot_share``) and, on a CUDA device, ``device_ms``: the device
-    time from the epoch's first enqueued work to its last, by two CUDA
-    events.
+    shape, the device bytes of its rows (``row_store_bytes``), on the
+    kernels' route the shares of its slots counted by bitmap
+    (``bitmap_slot_share``) and as heavy pairs (``heavy_slot_share``) and,
+    on a CUDA device, ``device_ms``: the device time from the epoch's first
+    enqueued work to its last, by two CUDA events.
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
@@ -206,9 +209,11 @@ def lcc_pipelined(
             epoch.set(rounds=prob.n_rounds, method=method,
                       route="plain" if plain else "kernels",
                       landed_ids=prob.landed_ids,
-                      landed_bytes=ID_BYTES * prob.landed_ids)
+                      landed_bytes=ID_BYTES * prob.landed_ids,
+                      row_store_bytes=prob.row_store_bytes())
             if not plain:
-                epoch.set(bitmap_slot_share=ec.bitmap_slot_share(prob))
+                epoch.set(bitmap_slot_share=ec.bitmap_slot_share(prob),
+                          heavy_slot_share=ec.heavy_slot_share(prob))
             if dev.type == "cuda":
                 stream = torch.cuda.current_stream(dev)
                 start, end = (torch.cuda.Event(enable_timing=True)

@@ -33,6 +33,7 @@ from .csr import CSRGraph, to_padded_rows
 from .partition import HubPartition, Partition1D, partition_1d
 
 __all__ = [
+    "pad_rows",
     "ShardedLCCProblem",
     "DeviceLCCProblem",
     "ScheduleWidthOverflow",
@@ -53,13 +54,44 @@ class ScheduleWidthOverflow(ValueError):
     does so automatically, doubling the width for headroom)."""
 
 
+def pad_rows(row_off: np.ndarray, row_ids: np.ndarray, rows, width: int,
+             sentinel: int) -> np.ndarray:
+    """``[len(rows), width]`` int32: the rows ``rows`` of a ragged store (row
+    ``g`` holds ``row_ids[row_off[g]:row_off[g + 1]]``), each padded with
+    ``sentinel`` to ``width``. Memory: the output and the rows' ids."""
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    start = row_off[rows]
+    lens = row_off[rows + 1] - start
+    out = np.full((rows.size, width), sentinel, np.int32)
+    total = int(lens.sum())
+    if total:
+        within = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        out[np.arange(width)[None, :] < lens[:, None]] = row_ids[
+            np.repeat(start, lens) + within]
+    return out
+
+
+def _ragged_from_padded(rows_ext: np.ndarray, degrees: np.ndarray):
+    """(row_off, row_ids) of padded ``[p, n_loc + 1, W]`` rows whose valid
+    prefixes the degrees give (the phantom row empty)."""
+    p, rows, w = rows_ext.shape
+    lens = np.zeros((p, rows), np.int64)
+    lens[:, : rows - 1] = degrees
+    row_off = np.zeros(p * rows + 1, np.int64)
+    np.cumsum(lens.reshape(-1), out=row_off[1:])
+    row_ids = rows_ext[np.arange(w) < lens[..., None]].astype(np.int32)
+    return row_off, row_ids
+
+
 @dataclasses.dataclass
 class DeviceLCCProblem:
     """The tensors of one ``ShardedLCCProblem`` on one torch device — what
     the epoch engine runs on. Dtypes are the host problem's: ids and
-    indices int32, the edge mask bool."""
+    indices int32, row offsets int64, the edge mask bool. The rows are the
+    host's ragged store; no padded row is held."""
 
-    rows_ext: "torch.Tensor"  # [p, n_loc+1, W] int32
+    row_ids: "torch.Tensor"  # [ids] int32 every local row's ids, back to back
+    row_off: "torch.Tensor"  # [p * (n_loc + 1) + 1] int64 start of each row
     degrees: "torch.Tensor"  # [p, n_loc] int32
     edge_u: "torch.Tensor"  # [p, E_max] int32
     edge_vc: "torch.Tensor"  # [p, E_max] int32
@@ -69,6 +101,7 @@ class DeviceLCCProblem:
     n: int
     p: int
     n_loc: int
+    width: int  # W, the largest degree: the cache rows' and padded views'
     e_max: int
     n_rounds: int
     s_max: int
@@ -86,7 +119,46 @@ class DeviceLCCProblem:
 
     @property
     def device(self):
-        return self.rows_ext.device
+        return self.row_off.device
+
+    def row_store_bytes(self) -> int:
+        """Device bytes of the rows: the local rows' ids and offsets and the
+        replicated cache rows."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.row_ids, self.row_off, self.cache_rows))
+
+    def padded_rows(self, rows: "torch.Tensor") -> "torch.Tensor":
+        """``[len(rows), W]`` int32: local rows by their flat index ``rank *
+        (n_loc + 1) + row``, each padded with the sentinel to W — for the
+        plain versions, which count padded rows, a slab at a time. Syncs
+        (the ids' count)."""
+        import torch
+
+        rows = rows.to(torch.int64).reshape(-1)
+        start = self.row_off[rows]
+        lens = self.row_off[rows + 1] - start
+        out = torch.full((rows.numel(), self.width), self.sentinel,
+                         dtype=torch.int32, device=rows.device)
+        total = int(lens.sum())
+        if total:
+            before = torch.cumsum(lens, 0) - lens
+            within = (torch.arange(total, device=rows.device)
+                      - torch.repeat_interleave(before, lens, output_size=total))
+            col = torch.arange(self.width, device=rows.device)
+            out[col[None, :] < lens[:, None]] = self.row_ids[
+                torch.repeat_interleave(start, lens, output_size=total)
+                + within]
+        return out
+
+    @property
+    def rows_ext(self) -> "torch.Tensor":
+        """Every local row padded to W, ``[p, n_loc + 1, W]``: a view built
+        on demand for the padded plain route and checks at small sizes;
+        the kernels never build it."""
+        import torch
+
+        rows = torch.arange(self.p * (self.n_loc + 1), device=self.device)
+        return self.padded_rows(rows).view(self.p, self.n_loc + 1, self.width)
 
 
 def _part_from_reference(part):
@@ -112,10 +184,16 @@ class ShardedLCCProblem:
       [0, n_loc+1)                         local rows (+1 phantom at n_loc)
       [n_loc+1, n_loc+1+C)                 replicated cache rows
       [n_loc+1+C, n_loc+1+C+p*S_max)       this round's fetched rows
+
+    The local rows are one ragged store: flat row ``g = rank * (n_loc + 1)
+    + row`` holds ``row_ids[row_off[g]:row_off[g + 1]]``, its sorted global
+    ids, as many as its degree (the phantom row and a rank's rows past its
+    block hold none). ``rows_ext`` pads them to W on demand.
     """
 
     # device data (leading axis p)
-    rows_ext: np.ndarray  # [p, n_loc+1, W] int32 global ids, sentinel = n
+    row_off: np.ndarray  # [p * (n_loc + 1) + 1] int64 start of each row
+    row_ids: np.ndarray  # [sum of degrees] int32 global ids, rows back to back
     degrees: np.ndarray  # [p, n_loc] int32 true degrees
     edge_u: np.ndarray  # [p, E_max] int32 local u index (pad -> n_loc)
     edge_vc: np.ndarray  # [p, E_max] int32 combined row index of v
@@ -144,15 +222,33 @@ class ShardedLCCProblem:
     def sentinel(self) -> int:
         return self.n
 
+    @property
+    def rows_ext(self) -> np.ndarray:
+        """Every local row padded with the sentinel to W, ``[p, n_loc + 1,
+        W]`` int32: a view built on demand from the ragged store, for the
+        consumers that want padded rows at small sizes (parity checks)."""
+        rows = np.arange(self.p * (self.n_loc + 1))
+        return pad_rows(self.row_off, self.row_ids, rows, self.width,
+                        self.sentinel).reshape(self.p, self.n_loc + 1,
+                                               self.width)
+
     @classmethod
     def from_reference(cls, obj) -> "ShardedLCCProblem":
         """Copy a problem compiled elsewhere: any object that carries this
         class's fields as numpy arrays / ints (duck-typed — e.g. the
-        reference package's ``ShardedLCCProblem``). Arrays are copied, so
-        later ``apply_delta`` calls never alias the source."""
+        reference package's ``ShardedLCCProblem``, whose padded
+        ``rows_ext`` becomes the ragged store). Arrays are copied, so later
+        ``apply_delta`` calls never alias the source."""
         works = getattr(obj, "works", None)
+        if hasattr(obj, "row_ids"):
+            row_off = np.array(obj.row_off, np.int64)
+            row_ids = np.array(obj.row_ids, np.int32)
+        else:
+            row_off, row_ids = _ragged_from_padded(
+                np.asarray(obj.rows_ext), np.asarray(obj.degrees))
         prob = cls(
-            rows_ext=np.array(obj.rows_ext, np.int32),
+            row_off=row_off,
+            row_ids=row_ids,
             degrees=np.array(obj.degrees, np.int32),
             edge_u=np.array(obj.edge_u, np.int32),
             edge_vc=np.array(obj.edge_vc, np.int32),
@@ -179,18 +275,20 @@ class ShardedLCCProblem:
         return prob
 
     def to_device(self, device) -> DeviceLCCProblem:
-        """The tensor view the engine runs on, copied to ``device``.
-        int32 stays int32 and the mask stays bool; the engine widens an
-        index to int64 only where a torch indexing op demands it."""
+        """The tensor view the engine runs on, copied to ``device``: the
+        ragged store as it is, nothing padded. int32 stays int32 and the
+        mask stays bool; the engine widens an index to int64 only where a
+        torch indexing op demands it."""
         import torch
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        with obs_trace.span("schedule.upload"):
+        with obs_trace.span("schedule.upload") as upload:
             pulled = self.pulled_ids_per_round()
-            return DeviceLCCProblem(
-                rows_ext=dev(self.rows_ext),
+            prob = DeviceLCCProblem(
+                row_ids=dev(self.row_ids),
+                row_off=dev(self.row_off),
                 degrees=dev(self.degrees),
                 edge_u=dev(self.edge_u),
                 edge_vc=dev(self.edge_vc),
@@ -200,12 +298,16 @@ class ShardedLCCProblem:
                 n=self.n,
                 p=self.p,
                 n_loc=self.n_loc,
+                width=self.width,
                 e_max=self.e_max,
                 n_rounds=self.n_rounds,
                 s_max=self.s_max,
                 land_ids=int(pulled.max(initial=0)),
                 landed_ids=int(pulled.sum()),
             )
+            if obs_trace.get_tracer() is not None:
+                upload.set(row_store_bytes=prob.row_store_bytes())
+        return prob
 
     def pulled_ids_per_round(self) -> np.ndarray:
         """[NR] ids of the valid prefixes of the rows pulled in each round,
@@ -256,14 +358,15 @@ class ShardedLCCProblem:
         present in, the graph the problem currently describes (exactly
         what ``normalize_batch`` emits). The patch
 
-        1. rewrites the padded rows + degrees of the touched vertices
-           (and their replicated cache-row copies) — O(delta) rows,
+        1. rewrites the rows + degrees of the touched vertices (and their
+           replicated cache-row copies) — O(delta) rows, spliced into the
+           ragged store by one copy of its ids,
         2. splices the touched edges in/out of each rank's worklist —
            one vectorized merge per rank, and — when ``new_cache_ids``
            carries a drifted static residency set — swaps
            ``cache_ids``/``cache_rows`` in place (the replicated rows
-           are gathered from the already-patched ``rows_ext``, so no
-           graph pass is needed), then
+           are gathered from the already-patched store, so no graph pass
+           is needed), then
         3. recompiles the pull schedule (round request lists, serve
            lists, combined indices) from the patched worklists with the
            vectorized compiler — bit-exact vs the per-edge reference in
@@ -371,26 +474,37 @@ class ShardedLCCProblem:
                     )
             splices.append((dpos, s_loc, d_glb))
 
-        # 1. patch padded rows, degrees, and replicated cache rows
+        # 1. patch rows, degrees, and replicated cache rows
+        new_rows: Dict[int, np.ndarray] = {}  # flat row -> its new ids
         for v in touched:
             k = int(part.owner(v))
             lu = v - part.lo(k)
-            d_old = int(self.degrees[k, lu])
-            row = self.rows_ext[k, lu, :d_old].astype(np.int64)
+            g = k * (self.n_loc + 1) + lu
+            row = self.row_ids[self.row_off[g]: self.row_off[g + 1]].astype(
+                np.int64)
             dels = np.asarray(del_of.get(v, ()), np.int64)
             adds = np.asarray(add_of.get(v, ()), np.int64)
             if dels.size:
                 row = row[~np.isin(row, dels)]
             if adds.size:
                 row = np.sort(np.concatenate([row, adds]))
-            self.rows_ext[k, lu, :] = sent
-            self.rows_ext[k, lu, : row.size] = row.astype(np.int32)
+            new_rows[g] = row.astype(np.int32)
             self.degrees[k, lu] = row.size
             if self.cache_ids.size:
                 ci = int(np.searchsorted(self.cache_ids, v))
                 if ci < self.cache_ids.size and self.cache_ids[ci] == v:
                     self.cache_rows[ci, :] = sent
                     self.cache_rows[ci, : row.size] = row.astype(np.int32)
+        pieces, at = [], 0
+        lens = np.diff(self.row_off)
+        for g in sorted(new_rows):
+            pieces += [self.row_ids[at: self.row_off[g]], new_rows[g]]
+            at = self.row_off[g + 1]
+            lens[g] = new_rows[g].size
+        pieces.append(self.row_ids[at:])
+        self.row_ids = np.concatenate(pieces)
+        self.row_off = np.zeros_like(self.row_off)
+        np.cumsum(lens, out=self.row_off[1:])
 
         # 2. splice the touched edges in/out of each rank's worklist
         #    (pre-validated above, so this cannot fail midway)
@@ -418,7 +532,9 @@ class ShardedLCCProblem:
                     [part.lo(k) for k in range(self.p)], np.int64
                 )
                 lus = fresh_ids - lo_of[owners]
-                self.cache_rows = self.rows_ext[owners, lus].copy()
+                self.cache_rows = pad_rows(
+                    self.row_off, self.row_ids,
+                    owners * (self.n_loc + 1) + lus, w, sent)
             else:
                 self.cache_rows = np.zeros((0, w), np.int32)
             self.cache_ids = fresh_ids
@@ -469,8 +585,11 @@ def build_sharded_problem(
     """Compile the static pull schedule for a p-way contiguous
     partition — 1D by default; pass ``part`` (any owner/lo/hi/sizes
     contract holder, e.g. ``partition_hub``) to compile against
-    variable cuts. Per-device row slabs are sized to the LARGEST block
-    so the ``[p, n_loc, ...]`` layout stays rectangular."""
+    variable cuts. Per-device arrays are sized to the LARGEST block
+    so the ``[p, n_loc, ...]`` layout stays rectangular; the local rows
+    are one ragged store, copied from the CSR's adjacency as it lies (no
+    ``[p, n_loc + 1, W]`` array is made). ``width`` (default: the largest
+    degree) pads the cache rows and may not be below any degree."""
     with obs_trace.span("schedule.build") as build:
         n_rounds_requested = n_rounds
         if part is None:
@@ -483,19 +602,32 @@ def build_sharded_problem(
         )
         c = cache_ids.shape[0]
 
-        with obs_trace.span("schedule.rows"):
-            # local padded rows (+ phantom row) and true degrees, per device
-            rows_ext = np.full((p, n_loc + 1, w), sent, np.int32)
+        with obs_trace.span("schedule.rows") as rows_span:
+            # local rows, ragged: each rank's block of the CSR's adjacency
+            # (its rows in order), then its empty rows past the block and
+            # its empty phantom row
+            if csr.max_degree > w:
+                raise ScheduleWidthOverflow(
+                    f"degree {csr.max_degree} exceeds the row width {w}")
             degrees = np.zeros((p, n_loc), np.int32)
             deg_all = csr.degrees
+            blocks = []
             for k in range(p):
                 lo, hi = part.lo(k), part.hi(k)
                 if hi > lo:
-                    vs = np.arange(lo, hi)
-                    rows_ext[k, : hi - lo] = to_padded_rows(
-                        csr, w, sentinel=sent, vertices=vs
-                    )
                     degrees[k, : hi - lo] = deg_all[lo:hi]
+                    blocks.append(csr.adjacencies[
+                        csr.offsets[lo]: csr.offsets[hi]])
+            row_ids = (np.concatenate(blocks).astype(np.int32, copy=False)
+                       if blocks else np.zeros(0, np.int32))
+            lens = np.zeros((p, n_loc + 1), np.int64)
+            lens[:, :n_loc] = degrees
+            row_off = np.zeros(p * (n_loc + 1) + 1, np.int64)
+            np.cumsum(lens.reshape(-1), out=row_off[1:])
+            if obs_trace.get_tracer() is not None:
+                rows_span.set(ids=int(row_ids.size),
+                              padded_ids_not_allocated=int(
+                                  p * (n_loc + 1) * w - row_ids.size))
 
             cache_rows = (
                 to_padded_rows(csr, w, sentinel=sent, vertices=cache_ids)
@@ -599,7 +731,8 @@ def build_sharded_problem(
                 edge_vc[k] = vc.astype(np.int32)
 
             prob = ShardedLCCProblem(
-                rows_ext=rows_ext,
+                row_off=row_off,
+                row_ids=row_ids,
                 degrees=degrees,
                 edge_u=edge_u,
                 edge_vc=edge_vc,
@@ -753,7 +886,8 @@ def assert_problems_equal(
     got: ShardedLCCProblem, want: ShardedLCCProblem
 ) -> None:
     """Field-wise bit-exact comparison of two compiled problems (the
-    incremental-maintenance acceptance check)."""
+    incremental-maintenance acceptance check). Rows compare as padded
+    rows (``rows_ext``), the one layout both packages give."""
     for f in ("n", "p", "width", "n_loc", "e_max", "n_rounds", "s_max"):
         g, w = getattr(got, f), getattr(want, f)
         assert g == w, f"{f}: {g} != {w}"

@@ -6,18 +6,22 @@
 // combined[evc] and rows_ext[eu] gathers, the count, acc.at[eu].add), with
 // B1's count (src/repro/kernels/intersect_count.py) inside it. The TPU
 // program moves whole padded rows: a [p*S_max, W] fetch block a round and two
-// [E, W] operands. Here nothing padded is moved:
+// [E, W] operands. Here nothing padded is moved or held: the local rows are
+// one ragged store, row g = rank * (n_loc + 1) + row at row_ids + row_off[g]
+// with deg_ext[g] ids (kron S19's rows take 62 MB so, 84.9 GB padded to its
+// largest degree).
 //
 //   epoch_land   the all-to-all as the block transpose got[dst, src] =
 //                to_send[src, dst]: for every real serve slot
 //                (serve_idx < n_loc) the valid prefix of the pulled row is
-//                copied, packed, to the landing buffer at its offset (an
+//                copied from the store, packed, to the landing buffer at its
+//                offset (an
 //                exclusive cumsum of the pulled degrees, made once an epoch).
 //                One warp an item, lane-strided copies.
 //   epoch_count  every edge slot of the round reads its two rows where they
-//                lie, by index, with their valid lengths: u from rows_flat
+//                lie, by index, with their valid lengths: u from the store
 //                (length from deg_ext), v by edge_vc's combined index from
-//                rows_flat [0, n_loc], the cache rows [n_loc+1, n_loc+1+C) or
+//                the store [0, n_loc], the cache rows [n_loc+1, n_loc+1+C) or
 //                the packed landing (the rest); a phantom slot (edge_mask
 //                false) exits at once. The count goes to acc[u] by an int32
 //                atomicAdd: exact and order-free; the phantom row n_loc is
@@ -96,8 +100,8 @@ constexpr int kItemIds = 32 * kPieceIlp * 8;  // ids of a piece's work item
 constexpr size_t kSmemCap = 48 << 10;
 
 struct CountArgs {
-  const int* rows_flat;   // [p * (n_loc + 1), row_stride]
-  long long row_stride;
+  const int* row_ids;        // the local rows' ids, back to back
+  const long long* row_off;  // [p * (n_loc + 1) + 1] start of each row
   const int* deg_ext;     // [p * (n_loc + 1)], 0 for the phantom rows
   const int* cache_rows;  // [n_cache, cache_stride]
   long long cache_stride;
@@ -132,7 +136,7 @@ __device__ __forceinline__ void row_of_v(const CountArgs& args, int rank,
                                          long long base, int vc,
                                          const int*& b, int& nb) {
   if (vc <= args.n_loc) {
-    b = args.rows_flat + (base + vc) * args.row_stride;
+    b = args.row_ids + __ldg(args.row_off + base + vc);
     nb = args.deg_ext[base + vc];
   } else if (vc < args.n_loc + 1 + args.n_cache) {
     const int c = vc - args.n_loc - 1;
@@ -161,7 +165,7 @@ __device__ __forceinline__ void count_piece(const CountArgs& args,
   const int rank = (int)(e0 / args.e_max);
   const long long base = (long long)rank * (args.n_loc + 1);
   const int u = args.edge_u[e0];
-  const int* a = args.rows_flat + (base + u) * args.row_stride;
+  const int* a = args.row_ids + __ldg(args.row_off + base + u);
   const int na = args.deg_ext[base + u];
 
   uint4* words = reinterpret_cast<uint4*>(bitmap);
@@ -238,7 +242,8 @@ struct AddCount {
 };
 
 __global__ void __launch_bounds__(kThreads)
-epoch_land_kernel(const int* __restrict__ rows_flat, long long row_stride,
+epoch_land_kernel(const int* __restrict__ row_ids,
+                  const long long* __restrict__ row_off,
                   const int* __restrict__ serve_idx,
                   const long long* __restrict__ land_off,
                   const int* __restrict__ land_len, int* __restrict__ landing,
@@ -258,7 +263,7 @@ epoch_land_kernel(const int* __restrict__ rows_flat, long long row_stride,
   if (loc >= n_loc) return;  // a phantom serve slot lands nothing
   const int len = __ldg(land_len + item);
   const int* row =
-      rows_flat + ((long long)src * (n_loc + 1) + loc) * row_stride;
+      row_ids + __ldg(row_off + (long long)src * (n_loc + 1) + loc);
   int* out = landing + __ldg(land_off + item);
   for (int k = lane; k < len; k += 32) out[k] = __ldg(row + k);
 }
@@ -320,7 +325,7 @@ epoch_count_kernel(const CountArgs args) {
       const bool merge = pi::use_merge(args.method, na, nb);
       pi::tile_add<kTile, kLightWork, kHeavyWork>(
           tile, tid,
-          pi::Pair{args.rows_flat + (base + u) * args.row_stride, b, na, nb,
+          pi::Pair{args.row_ids + __ldg(args.row_off + base + u), b, na, nb,
                    (int)(base + u), merge ? 1 : 0});
     }
   }
@@ -332,7 +337,7 @@ epoch_count_kernel(const CountArgs args) {
 }  // namespace epoch
 
 extern "C" int epoch_count_launch(
-    const void* rows_flat, long long row_stride, const void* deg_ext,
+    const void* row_ids, const void* row_off, const void* deg_ext,
     const void* cache_rows, long long cache_stride, const void* cache_len,
     int n_cache, const void* landing, const void* land_off,
     const void* land_len, const void* edge_u, const void* edge_vc,
@@ -364,7 +369,7 @@ extern "C" int epoch_count_launch(
     if (need > smem) smem = need;
   }
   const CountArgs args{
-      (const int*)rows_flat, row_stride, (const int*)deg_ext,
+      (const int*)row_ids, (const long long*)row_off, (const int*)deg_ext,
       (const int*)cache_rows, cache_stride, (const int*)cache_len, n_cache,
       (const int*)landing, (const long long*)land_off, (const int*)land_len,
       (const int*)edge_u, (const int*)edge_vc,
@@ -382,7 +387,7 @@ extern "C" int epoch_count_launch(
   return (int)cudaGetLastError();
 }
 
-extern "C" int epoch_land_launch(const void* rows_flat, long long row_stride,
+extern "C" int epoch_land_launch(const void* row_ids, const void* row_off,
                                  const void* serve_idx, const void* land_off,
                                  const void* land_len, void* landing, int p,
                                  int n_loc, int s_max, int n_rounds, int round,
@@ -392,7 +397,7 @@ extern "C" int epoch_land_launch(const void* rows_flat, long long row_stride,
   const long long blocks = (n_items + kWarps - 1) / kWarps;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   epoch_land_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)rows_flat, row_stride, (const int*)serve_idx,
+      (const int*)row_ids, (const long long*)row_off, (const int*)serve_idx,
       (const long long*)land_off, (const int*)land_len, (int*)landing, p,
       n_loc, s_max, n_rounds, round);
   return (int)cudaGetLastError();

@@ -13,9 +13,10 @@ valid length of every cache row. Per round ``r``:
                    valid prefix of every real pulled row, packed into
                    ``landing[land_off[r]]``; exactly the ids an RMA get moves.
   ``epoch_count``  for every edge slot of the round, ``|row(u) ∩ row(v)|``
-                   added into ``acc[rank, u]``: u's row from ``rows_ext``, v's
-                   by its combined index from ``rows_ext`` (``[0, n_loc]``),
-                   the cache rows (``[n_loc+1, n_loc+1+C)``) or the landing
+                   added into ``acc[rank, u]``: u's row from the problem's
+                   ragged store (``row_ids`` from ``row_off``), v's by its
+                   combined index from the store (``[0, n_loc]``), the
+                   cache rows (``[n_loc+1, n_loc+1+C)``) or the landing
                    (the rest), each with its valid length; phantom slots add
                    nothing and ``acc[rank, n_loc]`` is never touched.
                    ``method`` picks the strategy per pair: ``bsearch``
@@ -37,7 +38,12 @@ nb``), against the compares ``hybrid`` would make. A kept run is
 cut into pieces of at most ``_PIECE_SLOTS`` slots, so one hub's run spreads
 over many blocks. The constants were chosen on the card (``csrc/
 epoch_count.cu``'s header). ``bitmap_slot_share`` is the share of the real
-slots the pieces cover.
+slots the pieces cover, ``heavy_slot_share`` the share a tile block counts as
+a heavy pair (more than ``_HEAVY_WORK`` compares: the whole block's).
+
+The plain versions count padded rows, built from the store a slab at a time
+(``DeviceLCCProblem.padded_rows``); no padded copy of the whole store is
+made on either route.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 for CPU tensors; the choice follows the tensors' device and nothing else. A
@@ -65,6 +71,7 @@ __all__ = [
     "epoch_land_ref",
     "epoch_count",
     "epoch_count_ref",
+    "heavy_slot_share",
     "hybrid_merges",
     "launches",
     "reset_launches",
@@ -90,6 +97,9 @@ _FREE_SMEM = 24 << 10
 _PIECE_SCRATCH = 256 * 16  # kThreads x sizeof(PieceSlot)
 # slots of a tile block (kTile of csrc/epoch_count.cu)
 _TILE_SLOTS = 16
+# compares above which a tile block counts a pair with all its threads
+# (kHeavyWork of csrc/epoch_count.cu)
+_HEAVY_WORK = 2048
 _launches = {"epoch_land": 0, "epoch_count": 0}
 
 
@@ -134,10 +144,17 @@ class CountRuns:
     tile_start: Optional[Tuple[int, ...]]  # [NR + 1]
     covered: int  # real slots the pieces cover
     real: int  # real slots of the problem
+    # real slots no piece covers whose pair a tile block counts as heavy
+    # under ``hybrid`` (both rows nonempty, over _HEAVY_WORK compares)
+    heavy: int = 0
 
     @property
     def share(self) -> float:
         return self.covered / self.real if self.real else 0.0
+
+    @property
+    def heavy_share(self) -> float:
+        return self.heavy / self.real if self.real else 0.0
 
 
 def _slot_lengths(prob, k: int, pos: torch.Tensor, deg_ext: torch.Tensor,
@@ -160,6 +177,14 @@ def _slot_lengths(prob, k: int, pos: torch.Tensor, deg_ext: torch.Tensor,
         nb = torch.where(cached, cache_len[(vc - (n_loc + 1)).clamp(0, c - 1)],
                          nb)
     return nb
+
+
+def _hybrid_work(na: torch.Tensor, nb: torch.Tensor) -> torch.Tensor:
+    """Compares ``hybrid`` makes on pairs of valid lengths ``na``, ``nb``
+    (int64): what a tile block classes its pairs by."""
+    ns, nl = torch.minimum(na, nb), torch.maximum(na, nb)
+    return torch.where(hybrid_merges(na, nb), na + nb,
+                       ns * bit_length(nl).to(torch.int64))
 
 
 def _real(prob, k: int) -> torch.Tensor:
@@ -193,9 +218,7 @@ def _pieces_of_rank(prob, k: int, deg_ext: torch.Tensor,
         return empty, empty
     run, first, slots = _stretches(pos, eu[pos], e_chunk)
     na, nb = na_all[pos], _slot_lengths(prob, k, pos, deg_ext, cache_len)
-    ns, nl = torch.minimum(na, nb), torch.maximum(na, nb)
-    work = torch.where(hybrid_merges(na, nb), na + nb,
-                       ns * bit_length(nl).to(torch.int64))
+    work = _hybrid_work(na, nb)
     n_runs = first.numel()
     compares = torch.zeros(n_runs, dtype=torch.int64,
                            device=pos.device).index_add_(0, run, work)
@@ -216,17 +239,35 @@ def _pieces_of_rank(prob, k: int, deg_ext: torch.Tensor,
     return first[of] + lo, hi - lo
 
 
-def _tiles_of_rank(prob, k: int, first: torch.Tensor,
-                   slots: torch.Tensor) -> torch.Tensor:
-    """Rank-local ``pos * 32 + slots`` of the tiles over the real slots no
-    piece covers: each stretch of them within a round chunk cut into
-    ``_TILE_SLOTS``-slot tiles from its start."""
-    e_max, e_chunk = prob.e_max, prob.e_max // prob.n_rounds
-    edge = torch.zeros(e_max + 1, dtype=torch.int32, device=first.device)
+def _covered(prob, first: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """[e_max] bool: a rank's slots that its pieces (rank-local first slot,
+    slots) cover."""
+    edge = torch.zeros(prob.e_max + 1, dtype=torch.int32, device=first.device)
     edge.index_add_(0, first, torch.ones_like(first, dtype=torch.int32))
     edge.index_add_(0, first + slots,
                     -torch.ones_like(first, dtype=torch.int32))
-    covered = torch.cumsum(edge[:e_max], 0) > 0
+    return torch.cumsum(edge[: prob.e_max], 0) > 0
+
+
+def _heavy_of_rank(prob, k: int, covered: torch.Tensor,
+                   deg_ext: torch.Tensor, cache_len: torch.Tensor) -> int:
+    """Rank ``k``'s real slots outside ``covered`` whose pair a tile block
+    counts as heavy under ``hybrid`` (``tile_add`` of csrc/
+    pair_intersect.cuh: both rows nonempty, over ``_HEAVY_WORK``
+    compares)."""
+    pos = (_real(prob, k) & ~covered).nonzero().reshape(-1)
+    eu = prob.edge_u[k][pos].to(torch.int64)
+    na = deg_ext[k * (prob.n_loc + 1) + eu]
+    nb = _slot_lengths(prob, k, pos, deg_ext, cache_len)
+    return int(((na > 0) & (nb > 0)
+                & (_hybrid_work(na, nb) > _HEAVY_WORK)).sum())
+
+
+def _tiles_of_rank(prob, k: int, covered: torch.Tensor) -> torch.Tensor:
+    """Rank-local ``pos * 32 + slots`` of the tiles over the real slots no
+    piece covers: each stretch of them within a round chunk cut into
+    ``_TILE_SLOTS``-slot tiles from its start."""
+    e_chunk = prob.e_max // prob.n_rounds
     pos = (_real(prob, k) & ~covered).nonzero().reshape(-1)
     if pos.numel() == 0:
         return pos
@@ -258,7 +299,7 @@ def bitmap_bytes(sentinel: int) -> int:
 def bitmap_fits(prob) -> bool:
     """A piece block's shared memory (bitmap and slots) within what the
     launch takes anyway for a staged row, or within ``_FREE_SMEM``."""
-    stage = 4 * min(prob.rows_ext.shape[-1], _STAGE_IDS)
+    stage = 4 * min(prob.width, _STAGE_IDS)
     return (bitmap_bytes(prob.sentinel) + _PIECE_SCRATCH
             <= max(stage, _FREE_SMEM))
 
@@ -269,19 +310,20 @@ def count_runs(prob) -> CountRuns:
     piece where the bitmap would not fit (``bitmap_fits``). The build reads
     the problem's schedule arrays and synchronises; ``epoch_index`` asks for
     it before the epoch's own buffers exist, so its temporaries (rank by
-    rank, hubs' slots only) stay within the epoch's."""
+    rank) stay within the epoch's. It also counts the slots left to tiles
+    that are heavy pairs (``heavy_slot_share``)."""
     runs = getattr(prob, "_count_runs", None)
     if runs is not None:
         return runs
     p, n_loc, e_max = prob.p, prob.n_loc, prob.e_max
-    dev = prob.rows_ext.device
+    dev = prob.device
     n_real = sum(int(_real(prob, k).sum()) for k in range(p))
+    deg_ext = torch.cat([prob.degrees, prob.degrees.new_zeros((p, 1))],
+                        dim=1).reshape(-1).to(torch.int64)
+    cache_len = (prob.cache_rows < prob.sentinel).sum(-1)
     firsts = []
     if (bitmap_fits(prob) and prob.degrees.numel()
             and int(prob.degrees.max()) >= _MIN_RUN):
-        deg_ext = torch.cat([prob.degrees, prob.degrees.new_zeros((p, 1))],
-                            dim=1).reshape(-1).to(torch.int64)
-        cache_len = (prob.cache_rows < prob.sentinel).sum(-1)
         for k in range(p):
             first, slots = _pieces_of_rank(prob, k, deg_ext, cache_len)
             firsts.append((first + k * e_max, slots))
@@ -291,19 +333,21 @@ def count_runs(prob) -> CountRuns:
     order, piece_start = _by_round(prob, piece_e)
     piece_e, piece_n = piece_e[order], piece_n[order]
     tiles = tile_start = None
+    per_rank, heavy = [], 0
+    for k in range(p):
+        mine = (piece_e // e_max) == k
+        covered = _covered(prob, piece_e[mine] % e_max, piece_n[mine])
+        heavy += _heavy_of_rank(prob, k, covered, deg_ext, cache_len)
+        if piece_e.numel():
+            per_rank.append(_tiles_of_rank(prob, k, covered) + k * e_max * 32)
     if piece_e.numel():
-        per_rank = []
-        for k in range(p):
-            mine = (piece_e // e_max) == k
-            t = _tiles_of_rank(prob, k, piece_e[mine] % e_max, piece_n[mine])
-            per_rank.append(t + k * e_max * 32)
         tiles = torch.cat(per_rank)
         order, tile_start = _by_round(prob, tiles // 32)
         tiles = tiles[order]
     runs = CountRuns(piece_e=piece_e, piece_n=piece_n.to(torch.int32),
                      piece_start=piece_start, tiles=tiles,
                      tile_start=tile_start, covered=int(piece_n.sum()),
-                     real=n_real)
+                     real=n_real, heavy=heavy)
     prob._count_runs = runs
     return runs
 
@@ -312,6 +356,14 @@ def bitmap_slot_share(prob) -> float:
     """Share of the real edge slots of ``prob`` that the run table's pieces
     cover: the slots counted against a bitmap of their hub's row."""
     return count_runs(prob).share
+
+
+def heavy_slot_share(prob) -> float:
+    """Share of the real edge slots of ``prob`` that the epoch's tile
+    blocks count as heavy pairs under ``hybrid``: no piece covers them and
+    their two rows need more than ``_HEAVY_WORK`` compares, so a whole
+    block counts each (``tile_count`` of csrc/pair_intersect.cuh)."""
+    return count_runs(prob).heavy_share
 
 
 @dataclasses.dataclass
@@ -332,7 +384,7 @@ def epoch_index(prob) -> EpochIndex:
     problem's run table is built (``count_runs``, first, so its temporaries
     come before the maps')."""
     p, n_loc, nr, s_max = prob.p, prob.n_loc, prob.n_rounds, prob.s_max
-    dev = prob.rows_ext.device
+    dev = prob.device
     runs = count_runs(prob)
     deg_ext = torch.cat(
         [prob.degrees, prob.degrees.new_zeros((p, 1))], dim=1).reshape(-1)
@@ -347,10 +399,6 @@ def epoch_index(prob) -> EpochIndex:
                       land_len=land_len, land_off=ends - land_len, runs=runs)
 
 
-def _rows_flat(prob) -> torch.Tensor:
-    return prob.rows_ext.view(prob.p * (prob.n_loc + 1), -1)
-
-
 def _check(prob, index: EpochIndex, r: int, landing: torch.Tensor) -> None:
     if not 0 <= r < prob.n_rounds:
         raise ValueError(f"round {r} outside [0, {prob.n_rounds})")
@@ -360,7 +408,7 @@ def _check(prob, index: EpochIndex, r: int, landing: torch.Tensor) -> None:
     if landing.numel() < prob.land_ids:
         raise ValueError(f"landing holds {landing.numel()} ids, a round "
                          f"lands up to {prob.land_ids}")
-    dev = prob.rows_ext.device
+    dev = prob.device
     for name, t in (("landing", landing), ("land_len", index.land_len),
                     ("land_off", index.land_off)):
         if t.device != dev:
@@ -379,7 +427,8 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def _contiguous(prob, index: EpochIndex, *extra) -> None:
-    for name, t in (("rows_ext", prob.rows_ext), ("serve_idx", prob.serve_idx),
+    for name, t in (("row_ids", prob.row_ids), ("row_off", prob.row_off),
+                    ("serve_idx", prob.serve_idx),
                     ("edge_u", prob.edge_u), ("edge_vc", prob.edge_vc),
                     ("edge_mask", prob.edge_mask),
                     ("cache_rows", prob.cache_rows),
@@ -394,7 +443,7 @@ def epoch_land_ref(prob, index: EpochIndex, r: int,
                    landing: torch.Tensor) -> torch.Tensor:
     """Plain version of ``epoch_land``: one gather of every landed id."""
     p, n_loc, s_max = prob.p, prob.n_loc, prob.s_max
-    dev = prob.rows_ext.device
+    dev = prob.device
     loc = prob.serve_idx[:, r].permute(1, 0, 2).reshape(-1).to(torch.int64)
     src = torch.arange(p, device=dev, dtype=torch.int64)
     src = src.view(1, p, 1).expand(p, p, s_max).reshape(-1)
@@ -404,7 +453,7 @@ def epoch_land_ref(prob, index: EpochIndex, r: int,
     start = torch.repeat_interleave(off, lens)
     col = torch.arange(row.numel(), device=dev, dtype=torch.int64) - start
     # offsets are the exclusive cumsum in item order: the ids fill [0, total)
-    landing[: row.numel()] = _rows_flat(prob)[row, col]
+    landing[: row.numel()] = prob.row_ids[prob.row_off[row] + col]
     return landing
 
 
@@ -414,17 +463,17 @@ def epoch_land(prob, index: EpochIndex, r: int,
     least ``prob.land_ids`` ids, on the problem's device); returns it.
     Launches on the current stream and does not synchronise."""
     _check(prob, index, r, landing)
-    dev = prob.rows_ext.device
+    dev = prob.device
     if dev.type == "cpu":
         return epoch_land_ref(prob, index, r, landing)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _contiguous(prob, index, ("landing", landing))
     fn = _function("epoch_land_launch",
-                   [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-    w = prob.rows_ext.shape[-1]
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
     with torch.cuda.device(dev):
-        err = fn(prob.rows_ext.data_ptr(), w, prob.serve_idx.data_ptr(),
+        err = fn(prob.row_ids.data_ptr(), prob.row_off.data_ptr(),
+                 prob.serve_idx.data_ptr(),
                  index.land_off[r].data_ptr(), index.land_len[r].data_ptr(),
                  landing.data_ptr(), prob.p, prob.n_loc, prob.s_max,
                  prob.n_rounds, r, torch.cuda.current_stream().cuda_stream)
@@ -440,7 +489,7 @@ def _round_slots(prob, r: int):
     combined index, real) with real = edge_mask and u < n_loc."""
     e_chunk = prob.e_max // prob.n_rounds
     sl = slice(r * e_chunk, (r + 1) * e_chunk)
-    dev = prob.rows_ext.device
+    dev = prob.device
     base = torch.arange(prob.p, device=dev, dtype=torch.int64)[:, None]
     eu = prob.edge_u[:, sl].to(torch.int64)
     real = prob.edge_mask[:, sl] & (eu < prob.n_loc)
@@ -453,7 +502,7 @@ def _round_slots(prob, r: int):
 def _rows_b(prob, index: EpochIndex, r: int, landing, vc, rank):
     """Padded rows of v (sentinel beyond each valid prefix) and their valid
     lengths, read from the three regions of the combined index."""
-    n_loc, c, w = prob.n_loc, prob.cache_rows.shape[0], prob.rows_ext.shape[-1]
+    n_loc, c, w = prob.n_loc, prob.cache_rows.shape[0], prob.width
     sent = prob.sentinel
     out = torch.full((vc.numel(), w), sent, dtype=torch.int32,
                      device=vc.device)
@@ -462,7 +511,7 @@ def _rows_b(prob, index: EpochIndex, r: int, landing, vc, rank):
     cache = (vc > n_loc) & (vc < n_loc + 1 + c)
     fetched = vc >= n_loc + 1 + c
     g = rank[local] * (n_loc + 1) + vc[local]
-    out[local] = _rows_flat(prob)[g]
+    out[local] = prob.padded_rows(g)
     nb[local] = index.deg_ext[g]
     ci = vc[cache] - (n_loc + 1)
     out[cache] = prob.cache_rows[ci]
@@ -480,17 +529,18 @@ def _rows_b(prob, index: EpochIndex, r: int, landing, vc, rank):
 def epoch_count_ref(prob, index: EpochIndex, r: int, landing: torch.Tensor,
                     acc: torch.Tensor, *, method: str) -> torch.Tensor:
     """Plain version of ``epoch_count``: the round's real slots in slabs of
-    padded rows (at most ``_SLAB_BYTES`` an operand), counted by
+    padded rows (at most ``_SLAB_BYTES`` an operand, padded from the store
+    slab by slab), counted by
     ``count_bsearch_torch`` (bsearch), ``count_pairwise_torch`` (pairwise)
     or both picked by ``hybrid_merges`` (hybrid), then ``index_add_``."""
     a_row, vc, rank, real = _round_slots(prob, r)
     keep = real.nonzero().reshape(-1)
     a_row, vc, rank = a_row[keep], vc[keep], rank[keep]
-    rows_flat, sent = _rows_flat(prob), prob.sentinel
-    slab = max(1, _SLAB_BYTES // (4 * rows_flat.shape[-1]))
+    sent = prob.sentinel
+    slab = max(1, _SLAB_BYTES // (4 * prob.width))
     for lo in range(0, a_row.numel(), slab):
         a_s = a_row[lo: lo + slab]
-        rows_a = rows_flat[a_s]
+        rows_a = prob.padded_rows(a_s)
         rows_b, nb = _rows_b(prob, index, r, landing, vc[lo: lo + slab],
                              rank[lo: lo + slab])
         if method == "bsearch":
@@ -517,7 +567,7 @@ def epoch_count(prob, index: EpochIndex, r: int, landing: torch.Tensor,
     if acc.dtype != torch.int32 or acc.shape != (prob.p * (prob.n_loc + 1),):
         raise ValueError(f"acc must be int32 [{prob.p * (prob.n_loc + 1)}], "
                          f"got {acc.dtype} {tuple(acc.shape)}")
-    dev = prob.rows_ext.device
+    dev = prob.device
     if acc.device != dev:
         raise ValueError(f"acc on {acc.device}, problem on {dev}")
     if dev.type == "cpu":
@@ -527,13 +577,12 @@ def epoch_count(prob, index: EpochIndex, r: int, landing: torch.Tensor,
     _contiguous(prob, index, ("landing", landing), ("acc", acc))
     lib = _build.load(_LIB)
     fn = _function("epoch_count_launch",
-                   [_P, _LL, _P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _P,
+                   [_P, _P, _P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _LL, _LL, _I, _I, _I, _P, _P, _I, _P, _LL,
                     _I, _P, _P])
     if lib.epoch_count_tile_slots() != _TILE_SLOTS:
         raise RuntimeError("csrc/epoch_count.cu's tile is not _TILE_SLOTS")
-    w = prob.rows_ext.shape[-1]
-    stage_cap = min(w, _STAGE_IDS, lib.epoch_count_stage_cap())
+    stage_cap = min(prob.width, _STAGE_IDS, lib.epoch_count_stage_cap())
     runs = index.runs
     p0, p1 = runs.piece_start[r], runs.piece_start[r + 1]
     tiles, n_tiles = None, -1  # -1: every _TILE_SLOTS slots of the round
@@ -543,7 +592,8 @@ def epoch_count(prob, index: EpochIndex, r: int, landing: torch.Tensor,
         n_tiles = runs.tile_start[r + 1] - t0
     words = bitmap_bytes(prob.sentinel) // 4 if p1 > p0 else 0
     with torch.cuda.device(dev):
-        err = fn(prob.rows_ext.data_ptr(), w, index.deg_ext.data_ptr(),
+        err = fn(prob.row_ids.data_ptr(), prob.row_off.data_ptr(),
+                 index.deg_ext.data_ptr(),
                  prob.cache_rows.data_ptr(), prob.cache_rows.shape[-1],
                  index.cache_len.data_ptr(), prob.cache_rows.shape[0],
                  landing.data_ptr(), index.land_off[r].data_ptr(),

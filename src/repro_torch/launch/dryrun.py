@@ -730,15 +730,19 @@ def _entry(rec) -> Dict[str, Any]:
 # paper-lcc: the reference's shape arithmetic on the single mesh's p ranks
 # --------------------------------------------------------------------------
 def lcc_shapes(cfg, p: int) -> Dict[str, Any]:
-    """The reference's ``_setup_lcc`` shapes (``dryrun.py:355``): name ->
-    (shape, bytes an element), and the per-rank sizes."""
+    """The reference's ``_setup_lcc`` shapes (``dryrun.py:355``) as the
+    port holds them: name -> (shape, bytes an element), and the per-rank
+    sizes. The local rows are the port's ragged store (``avg_degree`` ids a
+    row and an int64 offset a row, the phantom rows' included), not the
+    reference's ``[p, n_loc + 1, W]`` padded rows."""
     n = cfg.n_vertices
     n_loc = -(-n // p)
     w = cfg.row_width
     e_max = -(-(n_loc * cfg.avg_degree) // cfg.n_rounds) * cfg.n_rounds
     s_max = max(e_max // cfg.n_rounds // max(p - 1, 1), 8)
     return {"n_loc": n_loc, "e_max": e_max, "s_max": s_max, "tensors": {
-        "rows_ext": ((p, n_loc + 1, w), 4), "degrees": ((p, n_loc), 4),
+        "row_ids": ((p * n_loc * cfg.avg_degree,), 4),
+        "row_off": ((p * (n_loc + 1) + 1,), 8), "degrees": ((p, n_loc), 4),
         "edge_u": ((p, e_max), 4), "edge_vc": ((p, e_max), 4),
         "edge_mask": ((p, e_max), 1),
         "serve_idx": ((p, cfg.n_rounds, p, s_max), 4),

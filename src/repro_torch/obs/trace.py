@@ -55,9 +55,10 @@ Taxonomy (the phase names instrumentation uses):
 The static LCC epoch (``core/async_engine.py::lcc_pipelined``):
 
     lcc.epoch         one whole call; args ``rounds``, ``method``,
-                      ``route``, ``landed_ids``, ``landed_bytes``, on the
-                      kernels' route ``bitmap_slot_share`` and, on a CUDA
-                      device with a tracer, ``device_ms``
+                      ``route``, ``landed_ids``, ``landed_bytes``,
+                      ``row_store_bytes``, on the kernels' route
+                      ``bitmap_slot_share`` and ``heavy_slot_share`` and,
+                      on a CUDA device with a tracer, ``device_ms``
     lcc.index         ``epoch_index``, the accumulators and landing
                       buffers, round 0's landing
     lcc.round         one round's landing and count (arg ``r``)
@@ -69,11 +70,14 @@ Its set-up, once a graph:
     csr.from_edges    the edge list deduplicated into a CSR graph
     cache.build       the static degree cache's residents chosen
     schedule.build    ``build_sharded_problem``, with the children
-    schedule.rows       padded local and cache rows
+    schedule.rows       the ragged store of local rows and the padded cache
+                        rows; args ``ids`` (stored) and
+                        ``padded_ids_not_allocated``
     schedule.requests   the per-edge pass: local, cached or pulled
     schedule.serve      the serve lists
     schedule.finalize   the combined row indices
-    schedule.upload   ``ShardedLCCProblem.to_device``
+    schedule.upload   ``ShardedLCCProblem.to_device``; arg
+                      ``row_store_bytes``
     clampi_sim        ``simulate_rma_lcc``: the CLaMPI cache simulation
 
 Fine mode (``enable_tracing(fine=True)``) additionally emits per-entry

@@ -283,7 +283,10 @@ def test_paper_lcc_modeled_bytes_closed_form():
     assert led["n_collectives"] == 8
     assert led["rows_shipped"] == 8 * 256 * 255 * 32
     t = rec["tensor_bytes"]
-    assert t["rows_ext"] == 256 * 4097 * 512 * 4
+    # the ragged store: 16 ids a row, an int64 offset a row and the end
+    assert t["row_ids"] == 256 * 4096 * 16 * 4
+    assert t["row_off"] == (256 * 4097 + 1) * 8
+    assert "rows_ext" not in t
     assert t["serve_idx"] == 256 * 8 * 256 * 32 * 4
     assert rec["memory"]["peak_bytes"] == sum(t.values())
     assert rec["fits"]

@@ -261,7 +261,8 @@ def test_from_reference_round_trip(p, cache_rows):
     got = rma.ShardedLCCProblem.from_reference(want)
     assert isinstance(got, rma.ShardedLCCProblem)
     same_problem(got, want)
-    assert got.rows_ext is not want.rows_ext  # a copy, not an alias
+    # a copy, not an alias: the store is the port's own
+    assert not np.shares_memory(got.row_ids, np.asarray(want.rows_ext))
     assert isinstance(got.part, partition.Partition1D)
     assert (got.part.n, got.part.p) == (want.part.n, want.part.p)
     # the carried-over state is live: the same delta patches both alike
@@ -281,11 +282,13 @@ def test_to_device_keeps_dtypes():
     c = cache.build_static_degree_cache(g.degrees, 8)
     prob = rma.build_sharded_problem(g, 4, n_rounds=2, cache=c)
     dev = prob.to_device("cpu")
-    for f in ("rows_ext", "degrees", "edge_u", "edge_vc", "serve_idx",
+    for f in ("row_ids", "degrees", "edge_u", "edge_vc", "serve_idx",
               "cache_rows"):
         t = getattr(dev, f)
         assert t.dtype == torch.int32, f
         same_array(t.numpy(), getattr(prob, f))
+    same_array(dev.row_off.numpy(), prob.row_off)  # int64 offsets
+    same_array(dev.rows_ext.numpy(), prob.rows_ext)  # the padded views
     assert dev.edge_mask.dtype == torch.bool
     assert dev.device.type == "cpu" and dev.sentinel == prob.sentinel
     assert (dev.p, dev.n_loc, dev.e_max, dev.n_rounds, dev.s_max) == (

@@ -128,7 +128,9 @@ def test_tracer_and_profiler_record_the_same_spans():
         "rounds": prob.n_rounds, "method": "bsearch", "route": "kernels",
         "landed_ids": dprob.landed_ids,
         "landed_bytes": rma.ID_BYTES * dprob.landed_ids,
-        "bitmap_slot_share": ec.bitmap_slot_share(dprob)}  # no device_ms here
+        "row_store_bytes": dprob.row_store_bytes(),
+        "bitmap_slot_share": ec.bitmap_slot_share(dprob),
+        "heavy_slot_share": ec.heavy_slot_share(dprob)}  # no device_ms here
     rounds = [e["args"]["r"] for e in tracer.events
               if e["name"] == "lcc.round"]
     assert rounds == list(range(prob.n_rounds))
